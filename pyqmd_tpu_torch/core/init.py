@@ -13,6 +13,7 @@ equal the JAX package's bitwise.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -200,3 +201,29 @@ def ensemble_init(
     )
     st = _member_identity(cfg, k_member)
     return st.replace(pos=torch.where(st.alive[..., None], origin + rot, origin))
+
+
+def mixed_ensemble_init(
+    cfg: SimConfig, species: list[tuple[int, int, int]], seed: int = 0, *, device="cpu"
+) -> NucleusState:
+    """A mixed-population batch: ``species`` is a list of ``(Z, N, count)``,
+    initialised per species and concatenated in order. Everything downstream
+    reads each nucleus's (Z, N) from the state, so one batch can hold
+    several isotopes, e.g. U-238 and C-14 decaying side by side.
+
+    Every species shares ``cfg.max_particles``, so the heaviest must fit;
+    only (Z, N) varies per species, and every other field of ``cfg``
+    carries through. Species i draws from seed ``seed + i * 1_000_003``.
+    """
+    parts = []
+    for i, (z, n, count) in enumerate(species):
+        if z + n > cfg.max_particles:
+            raise ValueError(
+                f"species ({z},{n}) A={z + n} exceeds max_particles={cfg.max_particles}"
+            )
+        sub_cfg = dataclasses.replace(cfg, z=z, n=n)
+        parts.append(ensemble_init(sub_cfg, count, seed=seed + i * 1_000_003, device=device))
+    return NucleusState(**{
+        f.name: torch.cat([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(NucleusState)
+    })

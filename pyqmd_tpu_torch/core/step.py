@@ -1,10 +1,12 @@
-"""The batched frame: substeps as a Python loop over batched tensor ops.
+"""The batched frames: substeps as a Python loop over batched tensor ops.
 
-Each substep advances the ejecta, runs the decay check, and calls the
-force + integrate step; the frame ends with one overlap projection and the
-metrics (reference nuclear_sim.py:118-176). The force and overlap passes go
-through the kernel wrappers, which take the plain PyTorch version for CPU
-tensors and the CUDA kernel for CUDA tensors.
+In the full-physics frame each substep advances the ejecta, runs the decay
+check, and calls the force + integrate step; the frame ends with one
+overlap projection and the metrics (reference nuclear_sim.py:118-176). The
+decay-statistics frame runs only the decay check, one kernel call per
+substep. The force, overlap and decay passes go through the kernel
+wrappers, which take the plain PyTorch version for CPU tensors and the
+CUDA kernel for CUDA tensors.
 
 The frame's scalars are computed in f32 in the JAX package's order, and
 every draw follows its key tree (``core/step.py:268-289`` there), so
@@ -18,9 +20,10 @@ import torch
 
 from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.config import SimConfig
-from pyqmd_tpu_torch.core.decay import maybe_decay
+from pyqmd_tpu_torch.core.decay import maybe_decay, pack_nucleon_bits, unpack_alive_ptype
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.core.overlap import _rand_u
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 from pyqmd_tpu_torch.state import ALPHA, NucleusState
@@ -91,6 +94,15 @@ def state_metrics(state: NucleusState) -> dict:
         "chain_cursor": state.chain_cursor,
         "rms_radius": state.rms_radius(),
     }
+
+
+def _ensemble_metrics(states: NucleusState) -> dict:
+    """Per-nucleus metrics plus the aggregate decay statistics, summed on
+    the device."""
+    metrics = state_metrics(states)
+    metrics["total_decay_counts"] = metrics["decay_counts"].sum(0, dtype=torch.int32)
+    metrics["total_alive"] = metrics["alive"].sum(dtype=torch.int32)
+    return metrics
 
 
 def _batched_overlap(pos, alive, keys, cfg: SimConfig):
@@ -164,10 +176,53 @@ def ensemble_step(
     pos = _batched_overlap(states.pos, states.alive, k3[:, 1], cfg)
     states = states.replace(pos=pos, rng=k3[:, 2].contiguous())
 
-    metrics = state_metrics(states)
-    metrics["total_decay_counts"] = metrics["decay_counts"].sum(0, dtype=torch.int32)
-    metrics["total_alive"] = metrics["alive"].sum(dtype=torch.int32)
-    return states, metrics
+    return states, _ensemble_metrics(states)
+
+
+def decay_ensemble_step(
+    states: NucleusState,
+    cfg: SimConfig,
+    time_scale,
+    frame_dt,
+    num_steps: int,
+    physics_dt=None,
+    raw_physics_dt=None,
+) -> tuple[NucleusState, dict]:
+    """Decay-statistics-only frame over a batch: Bernoulli decay, branch
+    sampling and the nucleon adjustment, without ejecta, forces or the
+    overlap pass, none of which can change which isotope a nucleus is.
+
+    The key tree is :func:`ensemble_step`'s (the force step draws nothing;
+    the overlap key is split but unused), so z, n, half_life, decay_counts,
+    the chain log and rng equal the full-physics frame's bitwise; positions,
+    velocities and ejecta are left as they were. Each substep is one
+    :func:`decay_stats_substep` call on a carry cloned once per frame, with
+    alive/ptype packed into bitfields once per frame.
+    """
+    states, dyn, k3, step_keys = _batched_frame_preamble(
+        states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
+    )
+    step_keys = step_keys.contiguous()
+    carry = states.replace(**{f: getattr(states, f).clone() for f in DECAY_FIELDS})
+    bits = pack_nucleon_bits(states.alive, states.ptype)
+    for s in range(num_steps):
+        decay_stats_substep(carry, bits, cfg, step_keys[s], dyn)
+    alive, ptype = unpack_alive_ptype(*bits, states.alive.shape[-1])
+    states = carry.replace(alive=alive, ptype=ptype, rng=k3[:, 2].contiguous())
+
+    return states, _ensemble_metrics(states)
+
+
+def make_decay_frame_fn(cfg: SimConfig, num_steps: int):
+    """:func:`decay_ensemble_step` for a (config, substep-count) bucket,
+    with the frame signature of :func:`make_frame_fn`."""
+
+    def frame(state, time_scale, frame_dt, physics_dt=cfg.effective_dt(),
+              raw_physics_dt=cfg.physics_dt):
+        return decay_ensemble_step(state, cfg, time_scale, frame_dt, num_steps,
+                                   physics_dt, raw_physics_dt)
+
+    return frame
 
 
 def simulate_frame(

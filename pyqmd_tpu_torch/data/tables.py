@@ -159,3 +159,11 @@ def half_life(z: torch.Tensor, n: torch.Tensor, u: torch.Tensor) -> torch.Tensor
 def sample_branch(z: torch.Tensor, n: torch.Tensor, r: torch.Tensor):
     """Sample a decay branch of isotopes (z, n) with draw ``r``."""
     return sample_branch_from_row(lookup_row(z, n), r)
+
+
+def half_life_host(z: int, n: int, u: float = 0.5) -> float:
+    """Host-side half-life of isotope (z, n) in seconds: the tabulated
+    value, else the semi-empirical estimate at draw ``u``."""
+    if (z, n) in HALF_LIVES:
+        return float(HALF_LIVES[(z, n)])
+    return _est.estimate_half_life(z, n, u)

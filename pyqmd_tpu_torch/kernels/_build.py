@@ -85,6 +85,10 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, _PTR,
     ]
     lib.pyqmd_overlap_step.restype = ctypes.c_int
+    lib.pyqmd_decay_stats.argtypes = [_PTR] * 17 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _PTR,
+    ]
+    lib.pyqmd_decay_stats.restype = ctypes.c_int
     lib.pyqmd_error_string.argtypes = [ctypes.c_int]
     lib.pyqmd_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,12 +9,16 @@ conftest (which imports JAX):
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (caps torch threads)
 from pyqmd_tpu_torch.config import SimConfig
-from pyqmd_tpu_torch.core import forces, overlap
+from pyqmd_tpu_torch.core import decay, forces, overlap
+from pyqmd_tpu_torch.core.dynamics import FrameDynamics
+from pyqmd_tpu_torch.core.init import ensemble_init
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 
@@ -83,3 +87,52 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         overlap_step(pos, alive, u.double(), cfg)
     with pytest.raises(ValueError):
         overlap_step(pos, alive[:, :4], u, cfg)
+
+
+def _decay_carry(dev, zn, pad_to, b, step_time, seed):
+    """A state on the card with half-lives around ``step_time``, its
+    bitfields, substep keys and dynamics."""
+    cfg = SimConfig.for_isotope(*zn, pad_to=pad_to, max_chain_log=8)
+    st = ensemble_init(cfg, b, seed=seed, device=dev)
+    g = np.random.default_rng(seed)
+    hl = torch.from_numpy((step_time * 10.0 ** g.uniform(-2, 2, b)).astype(np.float32))
+    st = st.replace(half_life=hl.to(dev), time_passed=torch.full((b,), 3e9, device=dev))
+    keys = torch.from_numpy(g.integers(0, 2**32, (b, 2), dtype=np.int64)).to(dev)
+    dyn = FrameDynamics(np.float32(1.0), np.float32(1.0), np.float32(cfg.effective_dt()),
+                        np.float32(step_time), None)
+    return cfg, st, decay.pack_nucleon_bits(st.alive, st.ptype), keys, dyn
+
+
+@pytest.mark.parametrize("zn,pad_to,b", [((6, 8), 8, 4099), ((82, 132), 8, 300),
+                                         ((92, 146), 128, 64)])
+def test_decay_kernel_matches_plain(dev, zn, pad_to, b):
+    cfg, st, bits, keys, dyn = _decay_carry(dev, zn, pad_to, b, 1e9, seed=b)
+    want, _, want_bits = decay.maybe_decay(st, cfg, keys, dyn, stats_only=True,
+                                           packed_nucleons=bits)
+    got = st.replace(**{f: getattr(st, f).clone() for f in DECAY_FIELDS})
+    got_bits = tuple(x.clone() for x in bits)
+    before = decay_stats_substep.launches
+    decay_stats_substep(got, got_bits, cfg, keys, dyn)
+    assert decay_stats_substep.launches == before + 1
+    for f in DECAY_FIELDS:
+        if getattr(want, f).dtype == torch.float32:
+            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0,
+                                       msg=f)
+        else:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert all(torch.equal(a, w) for a, w in zip(got_bits, want_bits))
+    assert int((got.chain_cursor != st.chain_cursor).sum()) > b // 10
+
+
+def test_decay_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, st, bits, keys, dyn = _decay_carry(dev, (6, 8), 8, 64, 1e9, seed=0)
+    with pytest.raises(TypeError):
+        decay_stats_substep(st, bits, cfg, keys.int(), dyn)
+    with pytest.raises(ValueError):
+        decay_stats_substep(st, bits, cfg, keys.cpu(), dyn)
+    with pytest.raises(ValueError):
+        decay_stats_substep(st, (bits[0], bits[1][:8]), cfg, keys, dyn)
+    with pytest.raises(TypeError):
+        decay_stats_substep(st.replace(half_life=st.half_life.double()), bits, cfg, keys, dyn)
+    with pytest.raises(ValueError):
+        decay_stats_substep(st, bits, cfg, keys.t().contiguous().t(), dyn)

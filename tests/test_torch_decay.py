@@ -162,3 +162,27 @@ def test_rank_masks_match_the_reference():
                                       torch.from_numpy(ptype[i:i + 1]))
         for r, g in zip(ref, got):
             np.testing.assert_array_equal(g.numpy()[0], np.asarray(r))
+
+
+def test_force_decay_matches_the_reference():
+    """``force_decay`` (every nucleus fires) over ``apply_decay``'s own
+    draws, against the reference's per-nucleus form under ``vmap``."""
+    from pyqmd_tpu.core.decay import force_decay as jax_force_decay
+
+    cfg = JaxConfig(z=92, n=146, max_particles=256, max_ejecta=8, max_chain_log=8)
+    jd, pd = _dynamics(3.0e10, 20.0, 1e10, cfg)
+    ref = _initial_state(cfg, per_parent=3, seed=3)
+    b = ref["z"].shape[0]
+    jkeys = jax.random.split(jax.random.PRNGKey(5), b)
+    keys = torch.from_numpy(np.asarray(jax.random.key_data(jkeys)).astype(np.int64))
+    jst, jtype = jax.vmap(lambda s, k: jax_force_decay(s, cfg, k, jd))(
+        JaxState(**{k: jnp.asarray(v) for k, v in ref.items()}), jkeys
+    )
+    pst, ptype = decay.force_decay(state_from_numpy(ref), tp.port_cfg(cfg), keys, pd)
+    np.testing.assert_array_equal(ptype.numpy(), np.asarray(jtype))
+    want = tp.jax_to_numpy(jst)
+    tp.assert_fields_equal(want, pst, tp.INT_FIELDS)
+    got = state_to_numpy(pst)
+    for f in FLOAT_FIELDS:
+        tp.assert_rel_close(got[f], want[f], 1e-6, f)
+    assert int((ptype != 0).sum()) >= 6 * 3  # every decaying parent fired

@@ -33,12 +33,18 @@ _PROBE = textwrap.dedent(
     from pyqmd_tpu_torch import SimConfig
     from pyqmd_tpu_torch.kernels.forces import force_step
     from pyqmd_tpu_torch.kernels.overlap import overlap_step
+    from pyqmd_tpu_torch.kernels.decay import decay_stats_substep
+    from pyqmd_tpu_torch import analysis, make_decay_frame_fn, ensemble_init
     cfg = SimConfig.for_isotope(2, 2, pad_to=8)
     pos = torch.full((3, 8, 2), 400.0) + torch.arange(16.0).reshape(1, 8, 2)
     alive = torch.ones(3, 8, dtype=torch.bool)
     force_step(pos, torch.zeros_like(pos), torch.zeros(3, 8, dtype=torch.int32), alive, 0.01, cfg)
     overlap_step(pos, alive, torch.zeros(3, 8), cfg)
+    states, _ = make_decay_frame_fn(SimConfig.for_isotope(6, 8), 2)(
+        ensemble_init(SimConfig.for_isotope(6, 8), 4), 1e11, 1.0)
+    assert analysis.half_life_host(6, 8) > 0 and states.z.shape == (4,)
     assert force_step.launches == 0 and overlap_step.launches == 0
+    assert decay_stats_substep.launches == 0
     assert _build.library.cache_info().currsize == 0
     print("MODULES", len(names))
     """
@@ -51,4 +57,4 @@ def test_port_imports_without_jax_and_builds_nothing():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split("MODULES")[1])
-    assert n_modules >= 17  # config, state, prng, data/*, core/*, kernels/*
+    assert n_modules >= 19  # config, state, prng, analysis, data/*, core/*, kernels/*

@@ -67,3 +67,23 @@ def test_placement_order_matches_the_reference():
 def test_unknown_method_raises():
     with pytest.raises(ValueError):
         init.ensemble_init(tp.port_cfg(JaxConfig.for_isotope(2, 2)), 4, method="bogus")
+
+
+@pytest.mark.parametrize("species,pad_to,seed", [
+    ([(92, 146, 3), (6, 8, 5)], 8, 0),
+    ([(82, 132, 2), (6, 8, 4), (2, 2, 3)], 8, 7),
+])
+def test_mixed_ensemble_init_matches_the_reference(species, pad_to, seed):
+    from pyqmd_tpu.core.init import mixed_ensemble_init as jax_mixed
+
+    cfg = JaxConfig.for_isotope(*species[0][:2], pad_to=pad_to)
+    ref = jax_mixed(cfg, species, seed=seed)
+    got = init.mixed_ensemble_init(tp.port_cfg(cfg), species, seed=seed)
+    assert got.batch == sum(c for _, _, c in species)
+    _assert_matches(ref, got)
+
+
+def test_mixed_ensemble_init_rejects_a_species_that_does_not_fit():
+    cfg = tp.port_cfg(JaxConfig.for_isotope(6, 8, pad_to=8))
+    with pytest.raises(ValueError):
+        init.mixed_ensemble_init(cfg, [(6, 8, 2), (92, 146, 1)])
