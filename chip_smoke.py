@@ -9,15 +9,17 @@ nonzero, and nothing catches it:
 1. device and build: the card's name and power limit, and the nvcc build
    of ``pyqmd_tpu_torch/csrc`` with its time and ptxas report;
 2. the force kernel against its plain PyTorch version, one step, on U-238
-   (P=256), unaligned P=100, He-4 (P=8) and a dense cluster, Euler and
-   leapfrog, exact (rtol = atol = 1e-4) and fast-math (atol 5e-3);
+   (P=256), unaligned P=100 and P=33, He-4 (P=8), a dense cluster and
+   P=2000, Euler and leapfrog, exact (rtol = atol = 1e-4) and fast-math
+   (atol 5e-3), and two launches on the same input bitwise equal;
 3. the overlap kernel against its plain version on the same sizes plus
-   coincident pairs (1e-4);
+   coincident pairs (1e-4), two launches bitwise equal;
 4. the slice at full width: a U-238 ensemble of 10240 nuclei, 3 frames of
    20 substeps at 1e9 years per second, through both kernels, with launch
    counts, decays and NaNs checked, and the rate in nucleus-substeps/s;
    then each kernel's and plain version's time per call at the slice's
-   shapes (the plain versions on a sub-batch of 1024 nuclei);
+   shapes (the plain versions on a sub-batch of 1024 nuclei) and at He-4
+   B=10240, each beside its bound (below) and its launches per frame;
 5. the same seed on the CPU (plain versions) and on the card (kernels),
    one frame: integer fields and RNG streams bitwise, pos/vel within 1e-3;
 6. the decay-statistics kernel against its plain PyTorch version on the
@@ -37,6 +39,14 @@ nonzero, and nothing catches it:
 8. the same seed through the statistics frame on the CPU and on the card,
    C-14 B=4096 and U-238 B=64: integer fields and RNG streams bitwise,
    floats within 1e-6 relative.
+
+A kernel's bound is the least time the card could take for the same work,
+from this run's inputs: the larger of the bytes it must move (each input
+read once, each output written once) over 3.35 TB/s and its operations
+over their peak (f32 67 TFLOP/s; the special-function unit 16 per SM per
+clock x 132 SMs x 1.98 GHz; int32 half the f32 rate). The force law counts
+40 flops and 3 transcendentals per pair (the JAX package's cost model,
+``forces_pallas.py:474, 485``).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -96,6 +106,16 @@ STATS_REL_TOL = 1e-6
 C14_B = 2_097_152  # the README's 2M-nucleus C-14 statistics
 U238_CHAIN_B = 65_536
 
+# Published H100 SXM peaks (NVIDIA's data sheet and Hopper white paper).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+SFU_OPS = 16 * 132 * 1.98e9
+INT32_OPS = F32_FLOPS / 2
+FORCE_FLOPS_PER_PAIR, FORCE_SFU_PER_PAIR = 40, 3  # forces_pallas.py:474, 485
+FORCE_BYTES_PER_SLOT = 37  # pos, vel, ptype, alive in; pos, vel out
+OVERLAP_BYTES_PER_SLOT = 21  # pos, alive, u in; pos out
+THREEFRY_INT_OPS = 80  # 20 rounds of add, rotate, xor plus 5 key injections
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -126,6 +146,43 @@ def rel_err(a, b) -> float:
     return float(rel.max(initial=0.0))
 
 
+def bound(nbytes: float, flops: float = 0.0, sfu: float = 0.0, int_ops: float = 0.0) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over their peak, whichever is larger."""
+    ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "flops": flops / F32_FLOPS * 1e3,
+          "sfu": sfu / SFU_OPS * 1e3, "int32": int_ops / INT32_OPS * 1e3}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_set_by": by, "bound_parts_ms": ms}
+
+
+def alive_pairs(alive) -> int:
+    a = alive.sum(-1).double()
+    return int((a * (a - 1) / 2).sum())
+
+
+def force_bound(alive, sweeps: int = 1) -> dict:
+    pairs = alive_pairs(alive) * sweeps
+    return bound(alive.numel() * FORCE_BYTES_PER_SLOT, flops=FORCE_FLOPS_PER_PAIR * pairs,
+                 sfu=FORCE_SFU_PER_PAIR * pairs)
+
+
+def overlap_bound(pos, alive, md2: float) -> tuple[dict, int]:
+    """Every alive pair takes the range test (~6 flops); a pair in range
+    adds the push (~15 flops, a sqrt and two divisions); every slot takes
+    a cos and a sin. Returns the bound and the pairs in range."""
+    in_range = 0
+    for s in range(0, pos.shape[0], 512):
+        p, a = pos[s:s + 512], alive[s:s + 512]
+        d = p[:, None] - p[:, :, None]
+        both = a[:, None] & a[:, :, None] & torch.ones(
+            a.shape[1], a.shape[1], dtype=torch.bool, device=a.device).triu(1)
+        in_range += int(((d * d).sum(-1) < md2)[both].sum())
+    pairs = alive_pairs(alive)
+    return bound(alive.numel() * OVERLAP_BYTES_PER_SLOT, flops=6 * pairs + 15 * in_range,
+                 sfu=3 * in_range + 2 * alive.numel()), in_range
+
+
 def phase_device_and_build() -> str:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -140,7 +197,7 @@ def phase_device_and_build() -> str:
     build_s = time.perf_counter() - t0
     log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}", flush=True)
     emit({"phase": "build", "seconds": round(build_s, 3), "library": path.name})
     return smi
@@ -152,8 +209,10 @@ def phase_force_kernel() -> float:
     cases = [
         ("u238", SimConfig.for_isotope(92, 146, pad_to=128), 256, 64, 40.0, 0.93),
         ("p100", SimConfig.for_isotope(26, 30, pad_to=100), 100, 37, 30.0, 0.6),
+        ("p33", SimConfig.for_isotope(15, 18, pad_to=33), 33, 101, 25.0, 0.9),
         ("he4", SimConfig.for_isotope(2, 2, pad_to=8), 8, 1037, 12.0, 0.7),
         ("dense", SimConfig.for_isotope(40, 50, pad_to=128), 128, 16, 4.0, 0.5),
+        ("p2000", SimConfig.for_isotope(92, 146, pad_to=2000), 2000, 4, 150.0, 0.9),
     ]
     for name, base, p, b, spread, frac in cases:
         pos, vel, ptype, alive, _ = random_batch(p, b, seed=p + b, spread=spread, alive_frac=frac)
@@ -171,11 +230,15 @@ def phase_force_kernel() -> float:
             torch.testing.assert_close(fv, ref_v, rtol=0, atol=FAST_ATOL)
             dead = ~alive
             assert torch.equal(kp[dead], pos[dead]) and torch.equal(kv[dead], vel[dead])
+            for cfg, (op, ov) in ((exact, (kp, kv)), (fast, (fp, fv))):
+                again = force_step(pos, vel, ptype, alive, DT, cfg)
+                assert torch.equal(again[0], op) and torch.equal(again[1], ov), (name, cfg)
             exact_d = max(max_diff(kp, ref_p), max_diff(kv, ref_v))
             worst_exact = max(worst_exact, exact_d)
             emit({"phase": "force_kernel", "case": name, "integrator": integrator,
                   "B": b, "P": p, "max_abs_diff_exact": exact_d,
-                  "max_abs_diff_fast": max(max_diff(fp, ref_p), max_diff(fv, ref_v))})
+                  "max_abs_diff_fast": max(max_diff(fp, ref_p), max_diff(fv, ref_v)),
+                  "relaunch_bitwise": True})
     return worst_exact
 
 
@@ -184,9 +247,11 @@ def phase_overlap_kernel() -> float:
     cases = [
         ("u238", SimConfig.for_isotope(92, 146, pad_to=128), 256, 64, 10.0, 0.93),
         ("p100", SimConfig.for_isotope(26, 30, pad_to=100), 100, 37, 8.0, 0.6),
+        ("p33", SimConfig.for_isotope(15, 18, pad_to=33), 33, 101, 8.0, 0.9),
         ("he4", SimConfig.for_isotope(2, 2, pad_to=8), 8, 1037, 4.0, 0.7),
         ("dense", SimConfig.for_isotope(40, 50, pad_to=128), 128, 16, 4.0, 0.5),
         ("coincident", SimConfig.for_isotope(2, 2, pad_to=128), 128, 16, 4.0, 0.0),
+        ("p2000", SimConfig.for_isotope(92, 146, pad_to=2000), 2000, 4, 150.0, 0.9),
     ]
     for name, cfg, p, b, spread, frac in cases:
         pos, _, _, alive, u = random_batch(p, b, seed=7 * p + b, spread=spread, alive_frac=frac)
@@ -198,11 +263,13 @@ def phase_overlap_kernel() -> float:
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=EXACT_TOL, atol=EXACT_TOL)
         assert torch.equal(got[~alive], pos[~alive])
+        assert torch.equal(overlap_step(pos, alive, u, cfg), got), name
         if name == "coincident":
             assert float((got[:, 0] - got[:, 1]).norm(dim=-1).min()) > 1.0
         d = max_diff(got, ref)
         worst = max(worst, d)
-        emit({"phase": "overlap_kernel", "case": name, "B": b, "P": p, "max_abs_diff": d})
+        emit({"phase": "overlap_kernel", "case": name, "B": b, "P": p, "max_abs_diff": d,
+              "relaunch_bitwise": True})
     return worst
 
 
@@ -241,18 +308,18 @@ def phase_slice(smi: str) -> list:
           "total_alive": int(metrics["total_alive"]), "card": smi})
 
     # Per-call times at the slice's shapes, the plain versions on a
-    # sub-batch of the slice's own state.
+    # sub-batch of the slice's own state; each beside its bound.
     sub = slice(0, SUB_B)
     pos, vel, ptype, alive = states.pos, states.vel, states.ptype, states.alive
     u = torch.rand(pos.shape[:2], device=DEV, generator=torch.Generator(DEV).manual_seed(0)) * 6.0
-    k_force_full = device_ms(lambda: force_step(pos, vel, ptype, alive, DT, cfg), DEV, 5)
+    k_force_full = device_ms(lambda: force_step(pos, vel, ptype, alive, DT, cfg), DEV, 20)
     k_force = device_ms(
         lambda: force_step(pos[sub], vel[sub], ptype[sub], alive[sub], DT, cfg), DEV, 20
     )
     p_force = device_ms(
         lambda: plain_forces.force_step(pos[sub], vel[sub], ptype[sub], alive[sub], DT, cfg), DEV, 5
     )
-    k_ov_full = device_ms(lambda: overlap_step(pos, alive, u, cfg), DEV, 5)
+    k_ov_full = device_ms(lambda: overlap_step(pos, alive, u, cfg), DEV, 20)
     k_ov = device_ms(lambda: overlap_step(pos[sub], alive[sub], u[sub], cfg), DEV, 20)
     p_ov = device_ms(
         lambda: plain_overlap.resolve_overlaps(pos[sub], alive[sub], u[sub], cfg), DEV, 5
@@ -264,19 +331,54 @@ def phase_slice(smi: str) -> list:
     ov_err = max_diff(overlap_step(pos[sub], alive[sub], u[sub], cfg),
                       plain_overlap.resolve_overlaps(pos[sub], alive[sub], u[sub], cfg))
     assert ov_err <= EXACT_TOL, ov_err
-    emit({"phase": "kernel_times", "card": smi, "sub_batch": SUB_B,
-          "force_ms_full_B": k_force_full, "force_ms_sub_B": k_force,
-          "force_plain_ms_sub_B": p_force, "overlap_ms_full_B": k_ov_full,
-          "overlap_ms_sub_B": k_ov, "overlap_plain_ms_sub_B": p_ov})
+    md2 = cfg.overlap_min_dist ** 2
+    fb_full, fb_sub = force_bound(alive), force_bound(alive[sub])
+    (ob_full, in_range), (ob_sub, _) = overlap_bound(pos, alive, md2), overlap_bound(
+        pos[sub], alive[sub], md2)
+
+    # He-4 at the slice's batch: the small-nucleus case of the same kernel.
+    he4 = SimConfig.for_isotope(2, 2, pad_to=8)
+    he = ensemble_init(he4, SLICE_B, seed=0, device=DEV)
+    k_he4 = device_ms(lambda: force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4), DEV, 20)
+    p_he4 = device_ms(
+        lambda: plain_forces.force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4), DEV, 5)
+    he4_err = max(max_diff(a, b) for a, b in zip(
+        force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4),
+        plain_forces.force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4)))
+    assert he4_err <= FAST_ATOL, he4_err
+    fb_he4 = force_bound(he.alive)
+
+    def share(b, ms):
+        return b["bound_ms"] / ms
+
+    emit({"phase": "kernel_times", "card": smi, "B": SLICE_B, "sub_batch": SUB_B,
+          "force": {"launches_per_frame": steps, "ms_full_B": k_force_full,
+                    "bound_full_B": fb_full, "share_full_B": share(fb_full, k_force_full),
+                    "ms_sub_B": k_force, "plain_ms_sub_B": p_force, "bound_sub_B": fb_sub,
+                    "alive_pairs_full_B": alive_pairs(alive),
+                    "simple_form_ms_full_B_pr1": 3.86},
+          "overlap": {"launches_per_frame": cfg.overlap_iterations, "ms_full_B": k_ov_full,
+                      "bound_full_B": ob_full, "share_full_B": share(ob_full, k_ov_full),
+                      "ms_sub_B": k_ov, "plain_ms_sub_B": p_ov, "bound_sub_B": ob_sub,
+                      "pairs_in_range_full_B": in_range,
+                      "simple_form_ms_full_B_pr1": 1.62},
+          "force_he4": {"launches_per_frame": he4.num_substeps(FRAME_DT, TIME_SCALE),
+                        "B": SLICE_B, "P": 8, "ms": k_he4, "plain_ms": p_he4, "bound": fb_he4,
+                        "share": share(fb_he4, k_he4), "max_abs_err": he4_err,
+                        "simple_form_ms_pr1": 0.061}})
     return [
         {"name": "force_step", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/forces.cu",
          "replaces": "pyqmd_tpu/kernels/forces_pallas.py:236",
          "launches": launches["force_step"], "max_abs_err": force_err, "ms": k_force,
-         "plain_ms": p_force},
+         "plain_ms": p_force, "bound_ms": fb_sub["bound_ms"], "bound_by": fb_sub["bound_by"],
+         "library_ms": None, "B": SUB_B, "ms_full_B": k_force_full,
+         "bound_ms_full_B": fb_full["bound_ms"]},
         {"name": "overlap_step", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/overlap.cu",
          "replaces": "pyqmd_tpu/kernels/overlap_pallas.py:38",
          "launches": launches["overlap_step"], "max_abs_err": ov_err, "ms": k_ov,
-         "plain_ms": p_ov},
+         "plain_ms": p_ov, "bound_ms": ob_sub["bound_ms"], "bound_by": ob_sub["bound_by"],
+         "library_ms": None, "B": SUB_B, "ms_full_B": k_ov_full,
+         "bound_ms_full_B": ob_full["bound_ms"]},
     ]
 
 
@@ -285,7 +387,7 @@ def phase_cpu_vs_card() -> None:
         cfg = SimConfig.for_isotope(z, n, pad_to=128 if z > 2 else 8)
         ts = 3.15576e18 if z > 2 else TIME_SCALE
         steps = cfg.num_substeps(FRAME_DT, ts)
-        cpu0 = ensemble_init(cfg, b, seed=5)
+        cpu0 = ensemble_init(cfg, b, seed=5, device="cpu")
         card0 = ensemble_init(cfg, b, seed=5, device=DEV)
         a, c = state_to_numpy(cpu0), state_to_numpy(card0)
         for f in INT_FIELDS:
@@ -506,9 +608,22 @@ def phase_stats_slice(smi: str, worst: tuple[float, float]) -> dict:
     kernel_runs = substep_ms(adv, bits, cfg, step_keys, dyn, kernel=True, reps=10)
     plain_runs = substep_ms(adv, bits, cfg, step_keys, dyn, kernel=False, reps=3)
     kernel_ms, plain_ms = float(np.mean(kernel_runs)), float(np.mean(plain_runs))
+    # Bound over the same calls: every nucleus reads its half-life and key
+    # (20 bytes) and hashes one threefry; a decay adds ~40 + 16 W bytes
+    # (decay.cu) and three more hashes.
+    carry, cbits = _clone_carry(adv, bits)
+    for keys in step_keys:
+        decay_stats_substep(carry, cbits, cfg, keys, dyn)
+    decays = int((carry.decay_counts - adv.decay_counts).sum()) / len(step_keys)
+    words = bits[0].shape[-1]
+    db = bound(C14_B * 20 + decays * (40 + 16 * words),
+               int_ops=THREEFRY_INT_OPS * (C14_B + 3 * decays))
     emit({"phase": "decay_kernel_times", "B": C14_B, "P": cfg.max_particles,
-          "C": cfg.max_chain_log, "kernel_ms": kernel_ms, "kernel_ms_runs": kernel_runs,
-          "plain_ms": plain_ms, "plain_ms_runs": plain_runs, "card": smi})
+          "C": cfg.max_chain_log, "launches_per_frame": 10, "kernel_ms": kernel_ms,
+          "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms, "plain_ms_runs": plain_runs,
+          "decays_per_call": decays, "bound": db, "share": db["bound_ms"] / kernel_ms,
+          "card": smi})
+    del carry, cbits
     del states, adv, bits, step_keys
     torch.cuda.empty_cache()
 
@@ -560,14 +675,15 @@ def phase_stats_slice(smi: str, worst: tuple[float, float]) -> dict:
     return {"name": "decay_stats", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/decay.cu",
             "replaces": "pyqmd_tpu/kernels/decay_pallas.py:78", "launches": launches,
             "max_abs_err": worst[0], "max_rel_err": worst[1], "ms": kernel_ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": db["bound_ms"], "bound_by": db["bound_by"],
+            "library_ms": None}
 
 
 def phase_stats_cpu_vs_card() -> None:
     for (z, n), b, ts in (((6, 8), 4_096, 1.8e10), ((92, 146), 64, 1.4e16)):
         cfg = SimConfig.for_isotope(z, n, pad_to=8)
         fn = make_decay_frame_fn(cfg, 10)
-        cpu = ensemble_init(cfg, b, seed=6)
+        cpu = ensemble_init(cfg, b, seed=6, device="cpu")
         card = cpu.to(DEV)
         for _ in range(3):
             cpu, cm = fn(cpu, ts, 1.0)

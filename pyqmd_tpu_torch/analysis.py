@@ -96,10 +96,11 @@ def survival_curve(
     decay_only: bool = True,
     max_chain_log: int = 8,
     overrides: dict | None = None,
-    device="cpu",
+    device="cuda",
 ) -> SurvivalResult:
-    """Run a ``batch``-nucleus ensemble of isotope (z, n) on ``device`` for
-    ``half_lives`` tabulated half-lives and record the survival curve.
+    """Run a ``batch``-nucleus ensemble of isotope (z, n) on ``device`` (the
+    card unless the caller names another) for ``half_lives`` tabulated
+    half-lives and record the survival curve.
 
     The MLE half-life fit uses the endpoint survivor count:
     ``T = ln2 * t_end / -ln(S)``; it is infinite when no member ever left
@@ -155,11 +156,12 @@ def chain_populations(
     decay_only: bool = True,
     max_chain_log: int = 8,
     overrides: dict | None = None,
-    device="cpu",
+    device="cuda",
 ) -> dict:
     """Track the isotope populations of a decaying ensemble over time.
 
-    Runs a ``batch``-nucleus ensemble of (z, n) on ``device`` and, each
+    Runs a ``batch``-nucleus ensemble of (z, n) on ``device`` (the card
+    unless the caller names another) and, each
     frame, histograms the per-nucleus (Z, N) over the reachable chain nodes
     (:func:`decay_chain_graph`) on the device, so one readback of
     O(nodes) counts per frame reaches the host. Returns ``{"times": [...],

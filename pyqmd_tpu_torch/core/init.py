@@ -148,9 +148,10 @@ def _init_from_key(cfg: SimConfig, keys: torch.Tensor) -> NucleusState:
     return st.replace(pos=_place_shells(cfg, place_keys))
 
 
-def init_state(cfg: SimConfig, seed: int = 0, *, device="cpu") -> NucleusState:
+def init_state(cfg: SimConfig, seed: int = 0, *, device="cuda") -> NucleusState:
     """One initialised nucleus as a batch of 1 (U-238 by default,
-    nuclear_sim.py:90)."""
+    nuclear_sim.py:90), on ``device`` (the card unless the caller names
+    another)."""
     return _init_from_key(cfg, prng.prng_key(seed, device=device)[None])
 
 
@@ -161,9 +162,10 @@ def ensemble_init(
     method: str = "auto",
     pool: int = 256,
     *,
-    device="cpu",
+    device="cuda",
 ) -> NucleusState:
-    """A batch of independently seeded nuclei on ``device``.
+    """A batch of independently seeded nuclei on ``device`` (the card
+    unless the caller names another).
 
     ``method``:
       * ``"exact"`` — every member runs the full sequential best-of-20
@@ -204,12 +206,13 @@ def ensemble_init(
 
 
 def mixed_ensemble_init(
-    cfg: SimConfig, species: list[tuple[int, int, int]], seed: int = 0, *, device="cpu"
+    cfg: SimConfig, species: list[tuple[int, int, int]], seed: int = 0, *, device="cuda"
 ) -> NucleusState:
     """A mixed-population batch: ``species`` is a list of ``(Z, N, count)``,
     initialised per species and concatenated in order. Everything downstream
     reads each nucleus's (Z, N) from the state, so one batch can hold
-    several isotopes, e.g. U-238 and C-14 decaying side by side.
+    several isotopes, e.g. U-238 and C-14 decaying side by side, on
+    ``device`` (the card unless the caller names another).
 
     Every species shares ``cfg.max_particles``, so the heaviest must fit;
     only (Z, N) varies per species, and every other field of ``cfg``

@@ -17,8 +17,8 @@ from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import forces as _plain
 from pyqmd_tpu_torch.kernels import _build
 
-# Six f32 arrays of P (leapfrog's share) plus the 128-byte reduction
-# buffer within a block's default 48 KB of shared memory.
+# The kernel takes up to 64 tiles of 32 slots; at P = 2000 its slots and
+# per-warp force buffers take 161 KB of shared memory, which it opts into.
 MAX_PARTICLES = 2000
 
 
@@ -32,7 +32,7 @@ class ForceParams(ctypes.Structure):
             "strong_amp_tail", "strong_core_amp", "epsilon", "strong_range",
             "strong_attract_cut", "strong_core_cut", "coulomb_strength",
             "pauli_strength", "pauli_range", "max_pair_force", "com_spring",
-            "damping",
+            "damping", "inv_min_allowed", "inv_strong_range", "inv_pauli_range",
         )
     ] + [("leapfrog", ctypes.c_int32), ("fast_math", ctypes.c_int32)]
 
@@ -41,9 +41,10 @@ def force_params(cfg: SimConfig) -> ForceParams:
     """The kernel's constants, folded in float64 as the plain version's
     Python expressions fold them, then rounded to f32 by ctypes."""
     s = cfg.strong_strength
+    min_allowed = cfg.nucleon_radius * cfg.hard_core_scale
     return ForceParams(
         hard_core_strength=cfg.hard_core_strength,
-        min_allowed=cfg.nucleon_radius * cfg.hard_core_scale,
+        min_allowed=min_allowed,
         strong_amp_attract=1.25 * s,
         strong_amp_tail=0.15 * s,
         strong_core_amp=-0.7 * s,
@@ -57,6 +58,9 @@ def force_params(cfg: SimConfig) -> ForceParams:
         max_pair_force=cfg.max_pair_force,
         com_spring=cfg.com_spring,
         damping=cfg.damping,
+        inv_min_allowed=1.0 / min_allowed,
+        inv_strong_range=1.0 / cfg.strong_range,
+        inv_pauli_range=1.0 / cfg.pauli_range,
         leapfrog=int(cfg.integrator == "leapfrog"),
         fast_math=int(cfg.fast_math),
     )

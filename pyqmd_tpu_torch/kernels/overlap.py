@@ -15,7 +15,7 @@ from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import overlap as _plain
 from pyqmd_tpu_torch.kernels import _build
 
-# Five f32 arrays of P in 48 KB of shared memory.
+# The kernel takes up to 64 tiles of 32 slots (csrc/pair_tiles.cuh).
 MAX_PARTICLES = 2048
 
 

@@ -57,8 +57,9 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
-    """Raw key data of ``jax.random.PRNGKey(seed)``: ``(2,)`` int64."""
+def prng_key(seed: int, device="cuda") -> torch.Tensor:
+    """Raw key data of ``jax.random.PRNGKey(seed)``: ``(2,)`` int64, on
+    ``device`` (the card unless the caller names another)."""
     return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
 
 

@@ -154,9 +154,10 @@ class NucleusState:
 
 
 def empty_state(
-    cfg: SimConfig, seed: int = 0, *, batch: int = 1, device="cpu"
+    cfg: SimConfig, seed: int = 0, *, batch: int = 1, device="cuda"
 ) -> NucleusState:
-    """All-dead batch with the right shapes and dtypes (no placement)."""
+    """All-dead batch with the right shapes and dtypes (no placement), on
+    ``device`` (the card unless the caller names another)."""
     p, e, l = cfg.max_particles, cfg.max_ejecta, cfg.max_chain_log
     f32, i32 = torch.float32, torch.int32
 
@@ -195,9 +196,10 @@ def empty_state(
     )
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> NucleusState:
-    """Build a state from ``{field: ndarray}`` with the JAX package's
-    dtypes (``rng`` as uint32). Arrays must already carry the batch dim."""
+def state_from_numpy(arrays: dict, device="cuda") -> NucleusState:
+    """Build a state on ``device`` (the card unless the caller names
+    another) from ``{field: ndarray}`` with the JAX package's dtypes
+    (``rng`` as uint32). Arrays must already carry the batch dim."""
     fields = {}
     for f in dataclasses.fields(NucleusState):
         a = np.asarray(arrays[f.name])

@@ -32,7 +32,7 @@ def jax_to_numpy(st) -> dict:
 
 def to_port(st):
     """A JAX state as a port state on the CPU."""
-    return state_from_numpy(jax_to_numpy(st))
+    return state_from_numpy(jax_to_numpy(st), device="cpu")
 
 
 def port_cfg(jax_cfg):

@@ -26,7 +26,7 @@ def test_survival_curve_matches_the_reference(zn, batch, frames, half_lives, see
     kw = dict(batch=batch, frames=frames, half_lives=half_lives, seed=seed,
               decay_only=decay_only)
     ref = jax_analysis.survival_curve(*zn, **kw)
-    got = analysis.survival_curve(*zn, **kw)
+    got = analysis.survival_curve(*zn, **kw, device="cpu")
     np.testing.assert_array_equal(got.times, ref.times)
     np.testing.assert_array_equal(got.survival, ref.survival)
     np.testing.assert_array_equal(got.decay_counts, np.asarray(ref.decay_counts))
@@ -38,13 +38,14 @@ def test_survival_curve_matches_the_reference(zn, batch, frames, half_lives, see
 
 def test_survival_curve_guards():
     with pytest.raises(ValueError):
-        analysis.survival_curve(2, 2)  # He-4 is stable
+        analysis.survival_curve(2, 2, device="cpu")  # He-4 is stable
     with pytest.raises(ValueError):
-        analysis.survival_curve(6, 8, batch=16, frames=0)
+        analysis.survival_curve(6, 8, batch=16, frames=0, device="cpu")
     with pytest.raises(ValueError):
-        analysis.survival_curve(6, 8, batch=16, frames=2, overrides={"max_particles": 4})
+        analysis.survival_curve(6, 8, batch=16, frames=2, overrides={"max_particles": 4},
+                                device="cpu")
     # Tc-99m's branches re-enter (43, 56): survival stays 1, the fit is inf.
-    res = analysis.survival_curve(43, 56, batch=32, frames=2)
+    res = analysis.survival_curve(43, 56, batch=32, frames=2, device="cpu")
     assert res.survival[-1] == 1.0 and math.isinf(res.fitted_half_life)
 
 
@@ -55,7 +56,7 @@ def test_survival_curve_guards():
 def test_chain_populations_match_the_reference(zn, batch, frames, half_lives, seed):
     kw = dict(batch=batch, frames=frames, half_lives=half_lives, seed=seed)
     ref = jax_analysis.chain_populations(*zn, **kw)
-    got = analysis.chain_populations(*zn, **kw)
+    got = analysis.chain_populations(*zn, **kw, device="cpu")
     assert got["times"] == ref["times"]
     assert got["populations"] == ref["populations"]
     assert analysis.chain_populations_csv(got) == jax_analysis.chain_populations_csv(ref)

@@ -7,7 +7,9 @@ conftest (which imports JAX):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import ctypes
 import dataclasses
+import subprocess
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import decay, forces, overlap
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.core.init import ensemble_init
+from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
@@ -44,7 +47,7 @@ def _batch(dev, b, p, spread, seed):
     return [t.to(dev) for t in (pos, vel, ptype, alive, u)]
 
 
-@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70)])
+@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (2000, 2)])
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
 def test_force_kernel_matches_plain(dev, p, b, integrator):
     base = SimConfig.for_isotope(2, 2, pad_to=p, integrator=integrator)
@@ -61,7 +64,7 @@ def test_force_kernel_matches_plain(dev, p, b, integrator):
         torch.testing.assert_close(g, r, rtol=0, atol=5e-3)
 
 
-@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70)])
+@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (2000, 2)])
 def test_overlap_kernel_matches_plain(dev, p, b):
     cfg = SimConfig.for_isotope(2, 2, pad_to=p)
     pos, _, _, alive, u = _batch(dev, b, p, 10.0 if p > 8 else 4.0, seed=3 * p + b)
@@ -72,6 +75,93 @@ def test_overlap_kernel_matches_plain(dev, p, b):
     assert overlap_step.launches == before + 1
     torch.testing.assert_close(got, overlap.resolve_overlaps(pos, alive, u, cfg),
                                rtol=1e-4, atol=1e-4)
+
+
+def _edge_batch(dev, case):
+    """A batch of 4 at P=100 (spread 30) with a shape the tile schedule
+    must handle: members with one alive slot and with none, a 32-slot tile
+    with no alive slot, or a dense cluster with a coincident triple."""
+    pos, vel, ptype, alive, u = _batch(dev, 4, 100, 30.0, seed=len(case))
+    if case == "one_and_none":
+        alive[:] = False
+        alive[0, 37] = alive[1, 99] = True  # members 2-3 have none
+    elif case == "dead_tile":
+        alive[:, 32:64] = False
+    elif case == "dense":
+        pos = 400 + (pos - 400) * (4.0 / 30.0)
+        pos[:, :3] = 400.0
+        alive[:, :3] = True
+    return pos, vel, ptype, alive, u
+
+
+@pytest.mark.parametrize("case", ["one_and_none", "dead_tile", "dense"])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_kernels_take_edge_nuclei(dev, case, integrator):
+    pos, vel, ptype, alive, u = _edge_batch(dev, case)
+    exact = SimConfig.for_isotope(26, 30, pad_to=100, integrator=integrator, fast_math=False)
+    tol = 2e-4 if case == "dense" else 1e-4
+    ref = forces.force_step(pos, vel, ptype, alive, DT, exact)
+    got = force_step(pos, vel, ptype, alive, DT, exact)
+    fast = force_step(pos, vel, ptype, alive, DT, dataclasses.replace(exact, fast_math=True))
+    for g, f, r in zip(got, fast, ref):
+        torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+        torch.testing.assert_close(f, r, rtol=0, atol=5e-3)
+    assert torch.equal(got[0][~alive], pos[~alive]) and torch.equal(got[1][~alive], vel[~alive])
+    got = overlap_step(pos, alive, u, exact)
+    torch.testing.assert_close(got, overlap.resolve_overlaps(pos, alive, u, exact),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[~alive], pos[~alive])
+
+
+@pytest.mark.parametrize("fast_math", [False, True])
+def test_kernels_give_the_same_bits_on_every_launch(dev, fast_math):
+    cfg = SimConfig.for_isotope(92, 146, pad_to=128, fast_math=fast_math)
+    pos, vel, ptype, alive, u = _batch(dev, 64, 256, 40.0, seed=11)
+    first = force_step(pos, vel, ptype, alive, DT, cfg)
+    for _ in range(3):
+        again = force_step(pos, vel, ptype, alive, DT, cfg)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    first = overlap_step(pos, alive, u, cfg)
+    for _ in range(3):
+        assert torch.equal(overlap_step(pos, alive, u, cfg), first)
+
+
+SQRT_CHECK = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "pair_math.cuh"
+__global__ void check(uint32_t lo, uint32_t n, unsigned long long* bad) {
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(lo + i);
+    if (__float_as_uint(pq_sqrt_rn(x)) != __float_as_uint(sqrtf(x))) atomicAdd(bad, 1ull);
+  }
+}
+extern "C" int sqrt_mismatches(uint32_t lo, uint32_t hi, unsigned long long* out) {
+  unsigned long long* bad;
+  cudaMalloc(&bad, sizeof(*bad));
+  cudaMemset(bad, 0, sizeof(*bad));
+  check<<<1056, 256>>>(lo, hi - lo, bad);
+  cudaMemcpy(out, bad, sizeof(*bad), cudaMemcpyDeviceToHost);
+  cudaFree(bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_pair_sqrt_is_correctly_rounded(dev, tmp_path):
+    """``pq_sqrt_rn`` equals ``sqrtf`` bitwise on every float in
+    [0.01, 2^24], the range of a pair's dist2 and far beyond it."""
+    (tmp_path / "check.cu").write_text(SQRT_CHECK)
+    lib = tmp_path / "libcheck.so"
+    subprocess.run([_build._find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", f"-I{_build.CSRC}", "-o", str(lib),
+                    str(tmp_path / "check.cu")], check=True, capture_output=True)
+    lo = int(np.float32(0.01).view(np.uint32))
+    hi = int(np.float32(2.0**24).view(np.uint32))
+    bad = ctypes.c_ulonglong(1)
+    err = ctypes.CDLL(str(lib)).sqrt_mismatches(ctypes.c_uint32(lo), ctypes.c_uint32(hi),
+                                                ctypes.byref(bad))
+    assert err == 0 and bad.value == 0
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

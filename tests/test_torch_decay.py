@@ -102,7 +102,7 @@ def test_decay_substeps_match_the_reference(patched_tables, ts, ss):
     ref = _initial_state(cfg, per_parent=4, seed=1)
     b = ref["z"].shape[0]
     jst = JaxState(**{k: jnp.asarray(v) for k, v in ref.items()})
-    pst = state_from_numpy(ref)
+    pst = state_from_numpy(ref, device="cpu")
     rng = np.random.default_rng(2)
     fired = 0
     for step in range(4):
@@ -178,7 +178,7 @@ def test_force_decay_matches_the_reference():
     jst, jtype = jax.vmap(lambda s, k: jax_force_decay(s, cfg, k, jd))(
         JaxState(**{k: jnp.asarray(v) for k, v in ref.items()}), jkeys
     )
-    pst, ptype = decay.force_decay(state_from_numpy(ref), tp.port_cfg(cfg), keys, pd)
+    pst, ptype = decay.force_decay(state_from_numpy(ref, device="cpu"), tp.port_cfg(cfg), keys, pd)
     np.testing.assert_array_equal(ptype.numpy(), np.asarray(jtype))
     want = tp.jax_to_numpy(jst)
     tp.assert_fields_equal(want, pst, tp.INT_FIELDS)

@@ -136,14 +136,15 @@ def _near_ties(u0, hl, step_time):
 CASES = {
     # P=16, one word: β- only.
     "c14": lambda: ensemble_init(SimConfig.for_isotope(6, 8, pad_to=8, max_chain_log=8), 512,
-                                 seed=0),
+                                 seed=0, device="cpu"),
     # P=256, eight words: α, β-, β+, p-emission and γ side by side.
     "mixed": lambda: mixed_ensemble_init(
         SimConfig(z=92, n=146, max_particles=256, max_chain_log=8),
-        [(92, 146, 96), (82, 132, 96), (40, 50, 96), (25, 20, 96), (43, 56, 96)], seed=3),
+        [(92, 146, 96), (82, 132, 96), (40, 50, 96), (25, 20, 96), (43, 56, 96)], seed=3,
+        device="cpu"),
     # P=240: the last word half full.
     "u238": lambda: ensemble_init(SimConfig.for_isotope(92, 146, pad_to=8, max_chain_log=4), 256,
-                                  seed=1),
+                                  seed=1, device="cpu"),
 }
 
 

@@ -164,7 +164,7 @@ def test_wrapper_updates_the_carry_in_place_on_cpu():
     pcfg = tp.port_cfg(cfg)
     dyn = FrameDynamics(np.float32(1.0), np.float32(1.0), np.float32(cfg.effective_dt()),
                         np.float32(2e3), None)
-    keys = prng.split(prng.prng_key(4), 16)
+    keys = prng.split(prng.prng_key(4, device="cpu"), 16)
     bits = decay.pack_nucleon_bits(st.alive, st.ptype)
     want, _, want_bits = decay.maybe_decay(st, pcfg, keys, dyn, stats_only=True,
                                            packed_nucleons=bits)

@@ -41,7 +41,7 @@ _PROBE = textwrap.dedent(
     force_step(pos, torch.zeros_like(pos), torch.zeros(3, 8, dtype=torch.int32), alive, 0.01, cfg)
     overlap_step(pos, alive, torch.zeros(3, 8), cfg)
     states, _ = make_decay_frame_fn(SimConfig.for_isotope(6, 8), 2)(
-        ensemble_init(SimConfig.for_isotope(6, 8), 4), 1e11, 1.0)
+        ensemble_init(SimConfig.for_isotope(6, 8), 4, device="cpu"), 1e11, 1.0)
     assert analysis.half_life_host(6, 8) > 0 and states.z.shape == (4,)
     assert force_step.launches == 0 and overlap_step.launches == 0
     assert decay_stats_substep.launches == 0

@@ -38,20 +38,22 @@ def _assert_matches(ref_state, got):
 def test_exact_init_matches_the_reference(zn, pad_to, batch, seed):
     cfg = JaxConfig.for_isotope(*zn, pad_to=pad_to)
     ref = jax_ensemble_init(cfg, batch, seed=seed, method="exact")
-    _assert_matches(ref, init.ensemble_init(tp.port_cfg(cfg), batch, seed=seed, method="exact"))
+    _assert_matches(ref, init.ensemble_init(tp.port_cfg(cfg), batch, seed=seed, method="exact",
+                                               device="cpu"))
 
 
 @pytest.mark.parametrize("zn,batch,pool,seed", [((6, 8), 12, 4, 0), ((92, 146), 6, 2, 3)])
 def test_pool_init_matches_the_reference(zn, batch, pool, seed):
     cfg = JaxConfig.for_isotope(*zn, pad_to=8)
     ref = jax_ensemble_init(cfg, batch, seed=seed, pool=pool)
-    _assert_matches(ref, init.ensemble_init(tp.port_cfg(cfg), batch, seed=seed, pool=pool))
+    _assert_matches(ref, init.ensemble_init(tp.port_cfg(cfg), batch, seed=seed, pool=pool,
+                                               device="cpu"))
 
 
 def test_init_state_is_a_batch_of_one():
     cfg = JaxConfig.for_isotope(6, 8, pad_to=8)
     ref = jax_init_state(cfg, seed=7)
-    got = init.init_state(tp.port_cfg(cfg), seed=7)
+    got = init.init_state(tp.port_cfg(cfg), seed=7, device="cpu")
     assert got.batch == 1
     expanded = {k: v[None] for k, v in tp.jax_to_numpy(ref).items()}
     tp.assert_fields_equal(expanded, got, BITWISE)
@@ -66,7 +68,8 @@ def test_placement_order_matches_the_reference():
 
 def test_unknown_method_raises():
     with pytest.raises(ValueError):
-        init.ensemble_init(tp.port_cfg(JaxConfig.for_isotope(2, 2)), 4, method="bogus")
+        init.ensemble_init(tp.port_cfg(JaxConfig.for_isotope(2, 2)), 4, method="bogus",
+                           device="cpu")
 
 
 @pytest.mark.parametrize("species,pad_to,seed", [
@@ -78,7 +81,7 @@ def test_mixed_ensemble_init_matches_the_reference(species, pad_to, seed):
 
     cfg = JaxConfig.for_isotope(*species[0][:2], pad_to=pad_to)
     ref = jax_mixed(cfg, species, seed=seed)
-    got = init.mixed_ensemble_init(tp.port_cfg(cfg), species, seed=seed)
+    got = init.mixed_ensemble_init(tp.port_cfg(cfg), species, seed=seed, device="cpu")
     assert got.batch == sum(c for _, _, c in species)
     _assert_matches(ref, got)
 
@@ -86,4 +89,4 @@ def test_mixed_ensemble_init_matches_the_reference(species, pad_to, seed):
 def test_mixed_ensemble_init_rejects_a_species_that_does_not_fit():
     cfg = tp.port_cfg(JaxConfig.for_isotope(6, 8, pad_to=8))
     with pytest.raises(ValueError):
-        init.mixed_ensemble_init(cfg, [(6, 8, 2), (92, 146, 1)])
+        init.mixed_ensemble_init(cfg, [(6, 8, 2), (92, 146, 1)], device="cpu")

@@ -34,13 +34,17 @@ SHIM = r"""
 extern "C" {
 int shim_params_size(void) { return (int)sizeof(PqForceParams); }
 int shim_offset_damping(void) { return (int)offsetof(PqForceParams, damping); }
+int shim_offset_inv_min_allowed(void) { return (int)offsetof(PqForceParams, inv_min_allowed); }
+int shim_offset_inv_strong_range(void) { return (int)offsetof(PqForceParams, inv_strong_range); }
+int shim_offset_inv_pauli_range(void) { return (int)offsetof(PqForceParams, inv_pauli_range); }
+int shim_offset_leapfrog(void) { return (int)offsetof(PqForceParams, leapfrog); }
 int shim_offset_fast_math(void) { return (int)offsetof(PqForceParams, fast_math); }
 
 void shim_pair_force(const float* dist2, const int* pp, const int* same, int n,
                      const PqForceParams* c, float* out) {
   for (int i = 0; i < n; ++i) {
     const float dist = sqrtf(fmaxf(dist2[i], 1e-12f));
-    out[i] = pq_pair_force(dist, dist2[i], pp[i], same[i], *c);
+    out[i] = pq_pair_force(dist, dist2[i], pp[i], same[i], *c, c->fast_math);
   }
 }
 
@@ -102,8 +106,12 @@ def _distances(rng) -> np.ndarray:
 
 def test_struct_layout_matches_ctypes(shim):
     assert shim.shim_params_size() == ctypes.sizeof(ForceParams)
-    assert shim.shim_offset_damping() == ForceParams.damping.offset
-    assert shim.shim_offset_fast_math() == ForceParams.fast_math.offset
+    for field in ("damping", "inv_min_allowed", "inv_strong_range", "inv_pauli_range",
+                  "leapfrog", "fast_math"):
+        assert getattr(shim, f"shim_offset_{field}")() == getattr(ForceParams, field).offset
+    params = force_params(SimConfig())
+    assert params.inv_min_allowed == np.float32(1 / (2.5 * 1.7))
+    assert params.inv_pauli_range == np.float32(1 / 8.0)
 
 
 @pytest.mark.parametrize("pp,same", [(0, 0), (0, 1), (1, 1)])

@@ -34,7 +34,7 @@ def _u32(t: torch.Tensor) -> np.ndarray:
 def test_prng_key_matches_jax():
     for s in SEEDS:
         np.testing.assert_array_equal(
-            _u32(prng.prng_key(s)), _jax_keys([s])[0], err_msg=str(s)
+            _u32(prng.prng_key(s, device="cpu")), _jax_keys([s])[0], err_msg=str(s)
         )
 
 

@@ -30,7 +30,7 @@ def test_numpy_round_trip_is_bitwise():
     # inf floats, negative zero.
     ref["rng"][0] = [0xFFFFFFFF, 0x80000001]
     ref["chain_time"][1, :3] = [np.nan, np.inf, -0.0]
-    back = state_to_numpy(state_from_numpy(ref))
+    back = state_to_numpy(state_from_numpy(ref, device="cpu"))
     assert back.keys() == ref.keys()
     for k in ref:
         assert back[k].dtype == ref[k].dtype, k
@@ -40,7 +40,7 @@ def test_numpy_round_trip_is_bitwise():
 def test_empty_state_matches_jax():
     cfg = JaxConfig.for_isotope(2, 2, pad_to=8)
     ref = tp.jax_to_numpy(jax.vmap(lambda _: jax_empty_state(cfg, seed=9))(np.arange(3)))
-    got = state_to_numpy(empty_state(tp.port_cfg(cfg), seed=9, batch=3))
+    got = state_to_numpy(empty_state(tp.port_cfg(cfg), seed=9, batch=3, device="cpu"))
     for k in ref:
         assert got[k].dtype == ref[k].dtype, k
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

@@ -100,7 +100,7 @@ def test_ensemble_step_equals_per_member_simulate_frame():
 def test_simulate_frame_takes_a_batch_of_one():
     cfg = tp.port_cfg(JaxConfig.for_isotope(2, 2, pad_to=8))
     with pytest.raises(ValueError):
-        step.simulate_frame(ensemble_init(cfg, 2), cfg, 1.0, 1 / 60, 1)
+        step.simulate_frame(ensemble_init(cfg, 2, device="cpu"), cfg, 1.0, 1 / 60, 1)
 
 
 def test_advance_ejecta_matches_the_reference():
@@ -122,7 +122,7 @@ def test_advance_ejecta_matches_the_reference():
         pd = FrameDynamics(np.float32(ts), np.float32(ss), np.float32(cfg.effective_dt()),
                            step_time, np.float32(cfg.physics_dt))
         want = tp.jax_to_numpy(jax.vmap(lambda s: jax_advance_ejecta(s, cfg, jd))(jst))
-        got = state_to_numpy(step.advance_ejecta(state_from_numpy(ref), tp.port_cfg(cfg), pd))
+        got = state_to_numpy(step.advance_ejecta(state_from_numpy(ref, device="cpu"), tp.port_cfg(cfg), pd))
         np.testing.assert_array_equal(got["ej_alive"], want["ej_alive"])
         np.testing.assert_array_equal(got["ej_age"], want["ej_age"])
         np.testing.assert_allclose(got["ej_pos"], want["ej_pos"], rtol=1e-6)
