@@ -8,34 +8,41 @@ nonzero, and nothing catches it:
 
 1. device and build: the card's name and power limit, and the nvcc build
    of ``pyqmd_tpu_torch/csrc`` with its time and ptxas report;
-2. the force kernel against its plain PyTorch version, one step, on U-238
-   (P=256), unaligned P=100 and P=33, He-4 (P=8), a dense cluster and
-   P=2000, Euler and leapfrog, exact (rtol = atol = 1e-4) and fast-math
-   (atol 5e-3), and two launches on the same input bitwise equal;
+2. the force kernels against their plain PyTorch version, one step: the
+   tiled kernel on U-238 (P=256), unaligned P=100 and P=33, a dense cluster
+   and P=2000, the sub-warp kernel on P = 2, 5, 8 (He-4), 16, 20 and 32
+   (the capacity alone picks it), Euler and leapfrog, exact (rtol = atol =
+   1e-4) and fast-math (atol 5e-3), and two launches on the same input
+   bitwise equal;
 3. the overlap kernel against its plain version on the same sizes plus
    coincident pairs (1e-4), two launches bitwise equal;
-4. the slice at full width: a U-238 ensemble of 10240 nuclei, 3 frames of
-   20 substeps at 1e9 years per second, through both kernels, with launch
+4. the full-physics slices: a U-238 ensemble of 10240 nuclei (the tiled
+   force kernel) and a He-4 one of 10240 (the sub-warp kernel, no decay),
+   3 frames of 20 substeps each at 1e9 years per second, with launch
    counts, decays and NaNs checked, and the rate in nucleus-substeps/s;
-   then each kernel's and plain version's time per call at the slice's
-   shapes (the plain versions on a sub-batch of 1024 nuclei) and at He-4
-   B=10240, each beside its bound (below) and its launches per frame;
+   then each kernel's and plain version's time per call at the slices'
+   shapes (the U-238 plain versions on a sub-batch of 1024 nuclei), and
+   the sub-warp kernel at He-4 B=1,048,576, each beside its bound (below)
+   and its launches per frame;
 5. the same seed on the CPU (plain versions) and on the card (kernels),
-   one frame: integer fields and RNG streams bitwise, pos/vel within 1e-3;
-6. the decay-statistics kernel against its plain PyTorch version on the
-   card, one substep each of C-14 (B=65536), Pb-214 (B=4099), U-238 at
-   P=240 (B=1024) and a U-238 + C-14 mixture, then 25 chained Pb-214
-   substeps: integer fields and bitfield words bitwise, half-lives and
-   times within 1e-6 relative;
+   one frame of U-238 and of He-4: integer fields and RNG streams bitwise,
+   pos/vel within 1e-3;
+6. the decay-statistics kernel's one-substep form against its plain
+   PyTorch version on the card, one substep each of C-14 (B=65536),
+   Pb-214 (B=4099), U-238 at P=240 (B=1024) and a U-238 + C-14 mixture,
+   then 25 chained Pb-214 substeps: integer fields and bitfield words
+   bitwise, half-lives and times within 1e-6 relative;
 7. the statistics slice at full width: ``analysis.survival_curve`` of C-14
    at 2,097,152 nuclei (20 frames of 10 substeps; fit within 1% of 5,730
-   years, 200 kernel launches) and ``analysis.chain_populations`` of U-238
-   at 65,536 nuclei (every member's alive and ptype agree with its decay
-   counts; the populations beside the Bateman curve). At both sizes, with
-   the 8-slot chain ring the path runs, the decay kernel is held to its
-   plain version on the frame's next substep (for U-238 with members whose
-   ring wraps), and at the C-14 size both are timed per call over a
-   frame's chained substeps;
+   years, one frame-kernel launch per frame) and
+   ``analysis.chain_populations`` of U-238 at 65,536 nuclei (30 launches;
+   every member's alive and ptype agree with its decay counts; the
+   populations beside the Bateman curve). At both sizes, with the 8-slot
+   chain ring the path runs, the frame kernel is held to the plain frame
+   (key tree, then a plain substep each) on the path's next frame, next
+   rng included (for U-238 with members whose ring wraps), and at the C-14
+   size both are timed per frame, beside ten launches of the one-substep
+   form;
 8. the same seed through the statistics frame on the CPU and on the card,
    C-14 B=4096 and U-238 B=64: integer fields and RNG streams bitwise,
    floats within 1e-6 relative.
@@ -44,9 +51,11 @@ A kernel's bound is the least time the card could take for the same work,
 from this run's inputs: the larger of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
 over their peak (f32 67 TFLOP/s; the special-function unit 16 per SM per
-clock x 132 SMs x 1.98 GHz; int32 half the f32 rate). The force law counts
-40 flops and 3 transcendentals per pair (the JAX package's cost model,
-``forces_pallas.py:474, 485``).
+clock x 132 SMs x 1.98 GHz; int32 128 per SM per clock over the integer
+and FMA pipes, 3.35e13/s, with the integer pipe's 64 alone beside it). The
+force law counts 40 flops and 3 transcendentals per pair (the JAX
+package's cost model, ``forces_pallas.py:474, 485``); a threefry2x32 hash
+80 int32 operations.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -81,8 +90,8 @@ from pyqmd_tpu_torch.core import step
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.frame_profile import device_ms
 from pyqmd_tpu_torch.kernels import _build
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
-from pyqmd_tpu_torch.kernels.forces import force_step
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
+from pyqmd_tpu_torch.kernels.forces import SMALL_MAX_PARTICLES, force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 from pyqmd_tpu_torch.state import DECAY_ALPHA, DECAY_BETA_MINUS, DECAY_BETA_PLUS, PROTON
 from pyqmd_tpu_torch.state import DECAY_NEUTRON_EMISSION, DECAY_PROTON_EMISSION
@@ -93,6 +102,7 @@ DT = 1 / 240.0
 EXACT_TOL = 1e-4  # tests/test_kernel.py:43
 FAST_ATOL = 5e-3  # tests/test_kernel.py:165
 SLICE_B = 10240
+HE4_BIG_B = 1_048_576
 SUB_B = 1024
 TIME_SCALE = 3.15576e16  # 1e9 years per wall-second
 FRAME_DT = 1 / 60
@@ -110,7 +120,13 @@ U238_CHAIN_B = 65_536
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 SFU_OPS = 16 * 132 * 1.98e9
-INT32_OPS = F32_FLOPS / 2
+# Integer work issues on two pipes: 64 lanes per SM per clock in the
+# integer ALU (IADD3, LOP3, SHF) and 64 in the FMA pipe as IMAD, which nvcc
+# uses for adds and shifts (a third of the decay frame kernel's integer
+# instructions). The ALU's 64 alone is no bound: the frame kernel ran at
+# 105% of it.
+INT32_OPS = 128 * 132 * 1.98e9
+INT32_ALU_OPS = 64 * 132 * 1.98e9
 FORCE_FLOPS_PER_PAIR, FORCE_SFU_PER_PAIR = 40, 3  # forces_pallas.py:474, 485
 FORCE_BYTES_PER_SLOT = 37  # pos, vel, ptype, alive in; pos, vel out
 OVERLAP_BYTES_PER_SLOT = 21  # pos, alive, u in; pos out
@@ -214,14 +230,30 @@ def phase_force_kernel() -> float:
         ("dense", SimConfig.for_isotope(40, 50, pad_to=128), 128, 16, 4.0, 0.5),
         ("p2000", SimConfig.for_isotope(92, 146, pad_to=2000), 2000, 4, 150.0, 0.9),
     ]
+    # The sub-warp kernel's capacities; B * next_pow2(P) is not a multiple
+    # of 32 for P = 2, 5 and 16, so the grid's last warp holds lanes past
+    # the batch, and member 1 of each batch has no alive slot.
+    small = SimConfig.for_isotope(2, 2, pad_to=8)
+    cases += [
+        ("p2", small, 2, 1501, 3.0, 0.9),
+        ("p5", small, 5, 777, 10.0, 0.8),
+        ("p16", small, 16, 517, 20.0, 0.85),
+        ("p20", small, 20, 333, 25.0, 0.85),
+        ("p32", small, 32, 257, 30.0, 0.9),
+    ]
     for name, base, p, b, spread, frac in cases:
         pos, vel, ptype, alive, _ = random_batch(p, b, seed=p + b, spread=spread, alive_frac=frac)
+        if p <= SMALL_MAX_PARTICLES and name != "he4":
+            alive[1] = False
         for integrator in ("euler", "leapfrog"):
             exact = dataclasses.replace(base, integrator=integrator, fast_math=False)
             fast = dataclasses.replace(exact, fast_math=True)
             ref_p, ref_v = plain_forces.force_step(pos, vel, ptype, alive, DT, exact)
+            small_before = force_step.small_launches
             kp, kv = force_step(pos, vel, ptype, alive, DT, exact)
             fp, fv = force_step(pos, vel, ptype, alive, DT, fast)
+            routed_small = force_step.small_launches - small_before
+            assert routed_small == (2 if p <= SMALL_MAX_PARTICLES else 0), (name, routed_small)
             torch.cuda.synchronize()
             tol = 2 * EXACT_TOL if name == "dense" else EXACT_TOL
             torch.testing.assert_close(kp, ref_p, rtol=tol, atol=tol)
@@ -236,6 +268,7 @@ def phase_force_kernel() -> float:
             exact_d = max(max_diff(kp, ref_p), max_diff(kv, ref_v))
             worst_exact = max(worst_exact, exact_d)
             emit({"phase": "force_kernel", "case": name, "integrator": integrator,
+                  "kernel": "sub_warp" if routed_small else "tiled",
                   "B": b, "P": p, "max_abs_diff_exact": exact_d,
                   "max_abs_diff_fast": max(max_diff(fp, ref_p), max_diff(fv, ref_v)),
                   "relaunch_bitwise": True})
@@ -249,6 +282,8 @@ def phase_overlap_kernel() -> float:
         ("p100", SimConfig.for_isotope(26, 30, pad_to=100), 100, 37, 8.0, 0.6),
         ("p33", SimConfig.for_isotope(15, 18, pad_to=33), 33, 101, 8.0, 0.9),
         ("he4", SimConfig.for_isotope(2, 2, pad_to=8), 8, 1037, 4.0, 0.7),
+        ("p5", SimConfig.for_isotope(2, 2, pad_to=8), 5, 777, 4.0, 0.8),
+        ("p20", SimConfig.for_isotope(2, 2, pad_to=8), 20, 333, 6.0, 0.85),
         ("dense", SimConfig.for_isotope(40, 50, pad_to=128), 128, 16, 4.0, 0.5),
         ("coincident", SimConfig.for_isotope(2, 2, pad_to=128), 128, 16, 4.0, 0.0),
         ("p2000", SimConfig.for_isotope(92, 146, pad_to=2000), 2000, 4, 150.0, 0.9),
@@ -285,16 +320,18 @@ def phase_slice(smi: str) -> list:
     states, _ = fn(states, TIME_SCALE, FRAME_DT)  # warm-up frame
     torch.cuda.synchronize()
 
-    force_step.launches = 0
+    force_step.launches = force_step.small_launches = 0
     overlap_step.launches = 0
     t0 = time.perf_counter()
     for _ in range(FRAMES):
         states, metrics = fn(states, TIME_SCALE, FRAME_DT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"force_step": force_step.launches, "overlap_step": overlap_step.launches}
+    launches = {"force_step": force_step.launches, "overlap_step": overlap_step.launches,
+                "force_step_small": force_step.small_launches}
 
     assert launches["force_step"] == FRAMES * steps, launches
+    assert launches["force_step_small"] == 0, launches
     assert launches["overlap_step"] == FRAMES * cfg.overlap_iterations, launches
     assert not bool(metrics["nan"].any()), "NaN in the ensemble"
     decays = int(metrics["total_decay_counts"].sum())
@@ -336,54 +373,100 @@ def phase_slice(smi: str) -> list:
     (ob_full, in_range), (ob_sub, _) = overlap_bound(pos, alive, md2), overlap_bound(
         pos[sub], alive[sub], md2)
 
-    # He-4 at the slice's batch: the small-nucleus case of the same kernel.
-    he4 = SimConfig.for_isotope(2, 2, pad_to=8)
-    he = ensemble_init(he4, SLICE_B, seed=0, device=DEV)
-    k_he4 = device_ms(lambda: force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4), DEV, 20)
-    p_he4 = device_ms(
-        lambda: plain_forces.force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4), DEV, 5)
-    he4_err = max(max_diff(a, b) for a, b in zip(
-        force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4),
-        plain_forces.force_step(he.pos, he.vel, he.ptype, he.alive, DT, he4)))
-    assert he4_err <= FAST_ATOL, he4_err
-    fb_he4 = force_bound(he.alive)
-
-    def share(b, ms):
-        return b["bound_ms"] / ms
-
     emit({"phase": "kernel_times", "card": smi, "B": SLICE_B, "sub_batch": SUB_B,
           "force": {"launches_per_frame": steps, "ms_full_B": k_force_full,
                     "bound_full_B": fb_full, "share_full_B": share(fb_full, k_force_full),
                     "ms_sub_B": k_force, "plain_ms_sub_B": p_force, "bound_sub_B": fb_sub,
-                    "alive_pairs_full_B": alive_pairs(alive),
-                    "simple_form_ms_full_B_pr1": 3.86},
+                    "alive_pairs_full_B": alive_pairs(alive)},
           "overlap": {"launches_per_frame": cfg.overlap_iterations, "ms_full_B": k_ov_full,
                       "bound_full_B": ob_full, "share_full_B": share(ob_full, k_ov_full),
                       "ms_sub_B": k_ov, "plain_ms_sub_B": p_ov, "bound_sub_B": ob_sub,
-                      "pairs_in_range_full_B": in_range,
-                      "simple_form_ms_full_B_pr1": 1.62},
-          "force_he4": {"launches_per_frame": he4.num_substeps(FRAME_DT, TIME_SCALE),
-                        "B": SLICE_B, "P": 8, "ms": k_he4, "plain_ms": p_he4, "bound": fb_he4,
-                        "share": share(fb_he4, k_he4), "max_abs_err": he4_err,
-                        "simple_form_ms_pr1": 0.061}})
+                      "pairs_in_range_full_B": in_range}})
     return [
-        {"name": "force_step", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/forces.cu",
+        {"name": "force", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/forces.cu",
          "replaces": "pyqmd_tpu/kernels/forces_pallas.py:236",
-         "launches": launches["force_step"], "max_abs_err": force_err, "ms": k_force,
+         "launches": launches["force_step"] - launches["force_step_small"],
+         "launches_per_frame": steps, "max_abs_err": force_err, "ms": k_force,
          "plain_ms": p_force, "bound_ms": fb_sub["bound_ms"], "bound_by": fb_sub["bound_by"],
-         "library_ms": None, "B": SUB_B, "ms_full_B": k_force_full,
-         "bound_ms_full_B": fb_full["bound_ms"]},
-        {"name": "overlap_step", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/overlap.cu",
+         "share": share(fb_sub, k_force), "library_ms": None, "B": SUB_B,
+         "ms_full_B": k_force_full, "bound_ms_full_B": fb_full["bound_ms"]},
+        {"name": "overlap", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/overlap.cu",
          "replaces": "pyqmd_tpu/kernels/overlap_pallas.py:38",
-         "launches": launches["overlap_step"], "max_abs_err": ov_err, "ms": k_ov,
-         "plain_ms": p_ov, "bound_ms": ob_sub["bound_ms"], "bound_by": ob_sub["bound_by"],
-         "library_ms": None, "B": SUB_B, "ms_full_B": k_ov_full,
-         "bound_ms_full_B": ob_full["bound_ms"]},
+         "launches": launches["overlap_step"], "launches_per_frame": cfg.overlap_iterations,
+         "max_abs_err": ov_err, "ms": k_ov, "plain_ms": p_ov, "bound_ms": ob_sub["bound_ms"],
+         "bound_by": ob_sub["bound_by"], "share": share(ob_sub, k_ov), "library_ms": None,
+         "B": SUB_B, "ms_full_B": k_ov_full, "bound_ms_full_B": ob_full["bound_ms"]},
     ]
 
 
+def share(b: dict, ms: float) -> float:
+    return b["bound_ms"] / ms
+
+
+def phase_he4_slice(smi: str) -> dict:
+    """The He-4 full-physics frame (P=8, the sub-warp force kernel) at the
+    slice's batch, then the kernel per call at that batch and at
+    HE4_BIG_B, beside its bound and the plain version."""
+    cfg = SimConfig.for_isotope(2, 2, pad_to=8)
+    steps = 20
+    states = ensemble_init(cfg, SLICE_B, seed=0, device=DEV)
+    fn = make_frame_fn(cfg, steps, batched=True)
+    states, _ = fn(states, TIME_SCALE, FRAME_DT)  # warm-up frame
+    torch.cuda.synchronize()
+
+    force_step.launches = force_step.small_launches = 0
+    overlap_step.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(FRAMES):
+        states, metrics = fn(states, TIME_SCALE, FRAME_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"force_step": force_step.launches, "force_step_small": force_step.small_launches,
+                "overlap_step": overlap_step.launches}
+    assert launches["force_step_small"] == launches["force_step"] == FRAMES * steps, launches
+    assert launches["overlap_step"] == FRAMES * cfg.overlap_iterations, launches
+    assert not bool(metrics["nan"].any()), "NaN in the He-4 ensemble"
+    assert int(metrics["total_decay_counts"].sum()) == 0, "a stable nucleus decayed"
+    assert bool(torch.isfinite(states.pos).all()) and states.pos.shape == (SLICE_B, 8, 2)
+    emit({"phase": "slice", "isotope": "He-4", "B": SLICE_B, "P": cfg.max_particles,
+          "frames": FRAMES, "substeps_per_frame": steps, "wall_s": wall,
+          "nucleus_substeps_per_s": SLICE_B * steps * FRAMES / wall, "launches": launches,
+          "total_alive": int(metrics["total_alive"]), "card": smi})
+
+    pos, vel, ptype, alive = states.pos, states.vel, states.ptype, states.alive
+    k_ms = device_ms(lambda: force_step(pos, vel, ptype, alive, DT, cfg), DEV, 50)
+    p_ms = device_ms(lambda: plain_forces.force_step(pos, vel, ptype, alive, DT, cfg), DEV, 5)
+    err = max(max_diff(a, b) for a, b in zip(force_step(pos, vel, ptype, alive, DT, cfg),
+                                             plain_forces.force_step(pos, vel, ptype, alive,
+                                                                     DT, cfg)))
+    assert err <= FAST_ATOL, err  # cfg runs fast_math, as the slice does
+    fb = force_bound(alive)
+
+    big = ensemble_init(cfg, HE4_BIG_B, seed=1, device=DEV)
+    bp, bv, bt, ba = big.pos, big.vel, big.ptype, big.alive
+    k_big = device_ms(lambda: force_step(bp, bv, bt, ba, DT, cfg), DEV, 20)
+    big_err = max(max_diff(a, b) for a, b in zip(force_step(bp, bv, bt, ba, DT, cfg),
+                                                 plain_forces.force_step(bp, bv, bt, ba, DT,
+                                                                         cfg)))
+    assert big_err <= FAST_ATOL, big_err
+    fb_big = force_bound(ba)
+    emit({"phase": "kernel_times", "kernel": "force_small", "card": smi, "P": 8,
+          "launches_per_frame": steps, "B": SLICE_B, "ms": k_ms, "plain_ms": p_ms, "bound": fb,
+          "share": share(fb, k_ms), "max_abs_err": err, "B_big": HE4_BIG_B, "ms_big": k_big,
+          "bound_big": fb_big, "share_big": share(fb_big, k_big), "max_abs_err_big": big_err})
+    return {"name": "force_small", "route": "cuda",
+            "source": "pyqmd_tpu_torch/csrc/forces_small.cu",
+            "replaces": "pyqmd_tpu/kernels/forces_pallas.py:117",
+            "launches": launches["force_step_small"], "launches_per_frame": steps,
+            "max_abs_err": max(err, big_err), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "share": share(fb, k_ms),
+            "library_ms": None, "B": SLICE_B, "ms_big_B": k_big,
+            "bound_ms_big_B": fb_big["bound_ms"], "big_B": HE4_BIG_B}
+
+
 def phase_cpu_vs_card() -> None:
-    for (z, n), b in (((92, 146), 8), ((2, 2), 64)):
+    # He-4 at B=1001: 8008 lanes, so the sub-warp kernel's last warp is ragged.
+    for (z, n), b in (((92, 146), 8), ((2, 2), 64), ((2, 2), 1001)):
         cfg = SimConfig.for_isotope(z, n, pad_to=128 if z > 2 else 8)
         ts = 3.15576e18 if z > 2 else TIME_SCALE
         steps = cfg.num_substeps(FRAME_DT, ts)
@@ -395,13 +478,17 @@ def phase_cpu_vs_card() -> None:
         init_pos = float(np.abs(c["pos"] - a["pos"]).max())
         fn = make_frame_fn(cfg, steps, batched=True)
         cpu, cm = fn(cpu0, ts, FRAME_DT)
+        small_before = force_step.small_launches
         card, km = fn(cpu0.to(DEV), ts, FRAME_DT)
+        small = force_step.small_launches - small_before
+        assert small == (steps if cfg.max_particles <= SMALL_MAX_PARTICLES else 0), small
         a, c = state_to_numpy(cpu), state_to_numpy(card)
         for f in INT_FIELDS:
             np.testing.assert_array_equal(c[f], a[f], err_msg=f)
         np.testing.assert_allclose(c["pos"], a["pos"], rtol=1e-3, atol=1e-3)
         np.testing.assert_allclose(c["vel"], a["vel"], rtol=1e-3, atol=1e-3)
         emit({"phase": "cpu_vs_card", "isotope": f"Z{z}N{n}", "B": b, "substeps": steps,
+              "force_kernel": "sub_warp" if small else "tiled",
               "decays": int(km["total_decay_counts"].sum()),
               "init_pos_max_abs_diff": init_pos,
               "pos_max_abs_diff": float(np.abs(c["pos"] - a["pos"]).max()),
@@ -453,32 +540,54 @@ def _kernel_vs_plain(states, cfg, keys, dyn, what):
     return abs_d, rel, got.chain_cursor != states.chain_cursor, alphas
 
 
-def _next_substep_inputs(states, cfg, sim_dt, substeps):
-    """The state, dynamics and substep keys that the statistics frame
-    hands its next kernel calls."""
-    states, dyn, _, step_keys = step._batched_frame_preamble(
-        states, cfg, sim_dt, 1.0, substeps, cfg.effective_dt(), cfg.physics_dt)
-    return states, dyn, step_keys.contiguous()
+def _next_frame_inputs(states, cfg, sim_dt):
+    """The state, packed nucleons and dynamics that the statistics frame
+    hands its next frame-kernel launch (10 substeps)."""
+    adv, dyn = step._frame_clock(states, cfg, sim_dt, 1.0, 10, cfg.effective_dt(),
+                                 cfg.physics_dt)
+    return adv, plain_decay.pack_nucleon_bits(adv.alive, adv.ptype), dyn
+
+
+def _plain_frame(adv, bits, cfg, dyn, substeps: int):
+    """The frame kernel's plain version: the frame's key tree, then one
+    plain substep per key. Returns the carry, bitfields and next rng."""
+    k3 = prng.split(adv.rng, 3)
+    st = adv
+    for keys in prng.split(k3[:, 0], substeps).transpose(0, 1):
+        st, _, bits = plain_decay.maybe_decay(st, cfg, keys.contiguous(), dyn, stats_only=True,
+                                              packed_nucleons=bits)
+    return st, bits, k3[:, 2]
 
 
 def _main_path_check(states, cfg, sim_dt, what, worst) -> dict:
-    """Kernel vs plain on the main path's own next substep: its batch, its
-    chain ring, its keys and clock. Raises on a difference; returns what
-    was compared, and the decays that wrote past the ring's end."""
-    adv, dyn, step_keys = _next_substep_inputs(states, cfg, sim_dt, 10)
-    abs_d, rel, fired, _ = _kernel_vs_plain(adv, cfg, step_keys[0], dyn, what)
+    """Frame kernel vs plain frame on the main path's own next frame: its
+    batch, its chain ring, its rng and clock. Raises on a difference;
+    returns what was compared, the decays that wrote past the ring's end
+    and the members that decayed more than once."""
+    adv, bits, dyn = _next_frame_inputs(states, cfg, sim_dt)
+    want, want_bits, want_rng = _plain_frame(adv, bits, cfg, dyn, 10)
+    got, got_bits = _clone_carry(adv, bits)
+    next_rng = decay_stats_frame(got, got_bits, adv.rng, cfg, dyn, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(next_rng, want_rng), f"{what}: next rng differs"
+    abs_d, rel = _compare_stats(want, want_bits, got, got_bits, what)
     worst[0], worst[1] = max(worst[0], abs_d), max(worst[1], rel)
-    wrapped = int((fired & (adv.chain_cursor >= cfg.max_chain_log)).sum())
-    return {"phase": "decay_kernel", "case": what, "B": adv.batch, "P": cfg.max_particles,
-            "C": cfg.max_chain_log, "decays": int(fired.sum()), "ring_wrap_decays": wrapped,
+    fired = got.chain_cursor - adv.chain_cursor
+    wrapped = int(((fired > 0) & (got.chain_cursor > cfg.max_chain_log)).sum())
+    return {"phase": "decay_frame_kernel", "case": what, "B": adv.batch,
+            "P": cfg.max_particles, "C": cfg.max_chain_log, "substeps": 10,
+            "decays": int(fired.sum()), "members_decayed_twice": int((fired > 1).sum()),
+            "ring_wrap_members": wrapped, "next_rng_bitwise": True,
             "max_abs_diff": abs_d, "max_rel_diff": rel}
 
 
-def substep_ms(adv, bits, cfg, step_keys, dyn, kernel: bool, reps: int) -> list[float]:
-    """Device time per substep call, over the S chained substeps of one
-    frame, each rep on a fresh copy of the carry, so every call sees the
-    frame's real share of decays. The card is held busy while the calls
-    are queued, so host gaps between launches are not timed."""
+def frame_ms(adv, bits, cfg, dyn, form: str, reps: int) -> list[float]:
+    """Device time of one statistics frame's decay pass (10 substeps),
+    each rep on a fresh copy of the carry, so every rep sees the frame's
+    real decays: ``form`` "frame" is one frame-kernel launch, "substeps"
+    the key tree and ten launches of the one-substep form, "plain" the
+    plain frame. The card is held busy while the calls are queued, so host
+    gaps between launches are not timed."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     out = []
     for r in range(reps + 1):  # rep 0 warms up
@@ -486,16 +595,18 @@ def substep_ms(adv, bits, cfg, step_keys, dyn, kernel: bool, reps: int) -> list[
         torch.cuda.synchronize()
         torch.cuda._sleep(20_000_000)
         start.record()
-        for keys in step_keys:
-            if kernel:
+        if form == "frame":
+            decay_stats_frame(carry, cbits, adv.rng, cfg, dyn, 10)
+        elif form == "substeps":
+            k3 = prng.split(adv.rng, 3)
+            for keys in prng.split(k3[:, 0], 10).transpose(0, 1).contiguous():
                 decay_stats_substep(carry, cbits, cfg, keys, dyn)
-            else:
-                carry, _, cbits = plain_decay.maybe_decay(carry, cfg, keys, dyn,
-                                                          stats_only=True, packed_nucleons=cbits)
+        else:
+            _plain_frame(carry, cbits, cfg, dyn, 10)
         end.record()
         torch.cuda.synchronize()
         if r:
-            out.append(start.elapsed_time(end) / len(step_keys))
+            out.append(start.elapsed_time(end))
     return out
 
 
@@ -559,14 +670,15 @@ def phase_decay_kernel() -> tuple[float, float]:
 
 def phase_stats_slice(smi: str, worst: tuple[float, float]) -> dict:
     """The statistics slice at full width, through the analysis entry points."""
-    decay_stats_substep.launches = 0
+    decay_stats_frame.launches = decay_stats_substep.launches = 0
     t0 = time.perf_counter()
     res = analysis.survival_curve(6, 8, batch=C14_B, frames=20, half_lives=2.0, substeps=10,
                                   seed=0, device=DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = decay_stats_substep.launches
-    assert launches == 200, launches
+    launches = decay_stats_frame.launches
+    assert launches == 20 and decay_stats_substep.launches == 0, (
+        launches, decay_stats_substep.launches)
     assert res.rel_error < 0.01, res.rel_error
     assert np.all(np.diff(res.survival) <= 0) and res.survival.shape == (21,)
     emit({"phase": "stats_slice", "case": "c14_survival", "B": C14_B, "frames": 20,
@@ -595,49 +707,53 @@ def phase_stats_slice(smi: str, worst: tuple[float, float]) -> dict:
           "nucleus_substeps_per_s": C14_B * 100 / frames_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
 
-    # Kernel vs plain at the main path's size (B=2M, the 8-slot chain ring),
-    # on the inputs of the frame's next substep (the state after 11 frames).
+    # Frame kernel vs plain frame at the main path's size (B=2M, the 8-slot
+    # chain ring), on the inputs of the frame's next frame (after 11 frames).
     worst = list(worst)
     c14_check = _main_path_check(states, cfg, sim_dt, "c14_main_path", worst)
-    assert c14_check["decays"] > 1000, c14_check
+    assert c14_check["decays"] > C14_B // 200, c14_check
     emit(c14_check)
 
-    # Per call over the next frame's 10 substeps, each rep from a fresh carry.
-    adv, dyn, step_keys = _next_substep_inputs(states, cfg, sim_dt, 10)
-    bits = plain_decay.pack_nucleon_bits(adv.alive, adv.ptype)
-    kernel_runs = substep_ms(adv, bits, cfg, step_keys, dyn, kernel=True, reps=10)
-    plain_runs = substep_ms(adv, bits, cfg, step_keys, dyn, kernel=False, reps=3)
+    # Per frame, each rep from a fresh carry: the frame kernel, the key tree
+    # with ten launches of the one-substep form, and the plain frame.
+    adv, bits, dyn = _next_frame_inputs(states, cfg, sim_dt)
+    kernel_runs = frame_ms(adv, bits, cfg, dyn, "frame", reps=10)
+    substep_runs = frame_ms(adv, bits, cfg, dyn, "substeps", reps=5)
+    plain_runs = frame_ms(adv, bits, cfg, dyn, "plain", reps=3)
     kernel_ms, plain_ms = float(np.mean(kernel_runs)), float(np.mean(plain_runs))
-    # Bound over the same calls: every nucleus reads its half-life and key
-    # (20 bytes) and hashes one threefry; a decay adds ~40 + 16 W bytes
-    # (decay.cu) and three more hashes.
+    # Bound over the same frame: every nucleus reads its rng and half-life
+    # and writes its next rng (36 bytes) and hashes 2 + 2 x 10 threefry
+    # blocks (two frame splits, a key split and a Bernoulli uniform per
+    # substep); a decay adds ~40 + 16 W bytes (decay.cu) and three hashes.
     carry, cbits = _clone_carry(adv, bits)
-    for keys in step_keys:
-        decay_stats_substep(carry, cbits, cfg, keys, dyn)
-    decays = int((carry.decay_counts - adv.decay_counts).sum()) / len(step_keys)
+    decay_stats_frame(carry, cbits, adv.rng, cfg, dyn, 10)
+    decays = int((carry.decay_counts - adv.decay_counts).sum())
     words = bits[0].shape[-1]
-    db = bound(C14_B * 20 + decays * (40 + 16 * words),
-               int_ops=THREEFRY_INT_OPS * (C14_B + 3 * decays))
+    db = bound(C14_B * 36 + decays * (40 + 16 * words),
+               int_ops=THREEFRY_INT_OPS * (C14_B * (2 + 2 * 10) + 3 * decays))
     emit({"phase": "decay_kernel_times", "B": C14_B, "P": cfg.max_particles,
-          "C": cfg.max_chain_log, "launches_per_frame": 10, "kernel_ms": kernel_ms,
-          "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms, "plain_ms_runs": plain_runs,
-          "decays_per_call": decays, "bound": db, "share": db["bound_ms"] / kernel_ms,
+          "C": cfg.max_chain_log, "substeps": 10, "launches_per_frame": 1,
+          "frame_kernel_ms": kernel_ms, "frame_kernel_ms_runs": kernel_runs,
+          "substep_form_key_tree_and_x10_ms_runs": substep_runs,
+          "plain_frame_ms": plain_ms, "plain_frame_ms_runs": plain_runs,
+          "decays_per_frame": decays, "bound": db, "share": db["bound_ms"] / kernel_ms,
+          "int32_alu_pipe_only_ms": db["bound_parts_ms"]["int32"] * INT32_OPS / INT32_ALU_OPS,
           "card": smi})
     del carry, cbits
-    del states, adv, bits, step_keys
+    del states, adv, bits
     torch.cuda.empty_cache()
 
     # U-238 down its chain: the alpha path on all eight words.
     # chain_populations' settings below, in _ensemble_setup's order.
     chain_args = (92, 146, U238_CHAIN_B, 30, 3.0, 10, 0, 8, True, 8, None, DEV)
-    decay_stats_substep.launches = 0
+    decay_stats_frame.launches = decay_stats_substep.launches = 0
     t0 = time.perf_counter()
     out = analysis.chain_populations(92, 146, batch=U238_CHAIN_B, frames=30, half_lives=3.0,
                                      device=DEV)
     torch.cuda.synchronize()
     chain_wall = time.perf_counter() - t0
-    chain_launches = decay_stats_substep.launches
-    assert chain_launches == 300, chain_launches
+    chain_launches = decay_stats_frame.launches
+    assert chain_launches == 30 and decay_stats_substep.launches == 0, chain_launches
     # The same run once more through its frame loop, to hold its final state;
     # its populations must be the entry point's.
     _, cfg, final, fn, sim_dt = analysis._ensemble_setup(*chain_args)
@@ -647,10 +763,10 @@ def phase_stats_slice(smi: str, worst: tuple[float, float]) -> dict:
                         return_counts=True)
     assert {f"{z}:{n}": int(c) for (z, n), c in zip(zn, cnt)} == {
         k: v[-1] for k, v in out["populations"].items() if v[-1]}
-    # Kernel vs plain on its next substep: the members past Pb-214 have
-    # filled the 8-slot ring and write over its oldest records.
+    # Frame kernel vs plain frame on its next frame: the members past Pb-214
+    # have filled the 8-slot ring and write over its oldest records.
     chain_check = _main_path_check(final, cfg, sim_dt, "u238_chain_main_path", worst)
-    assert chain_check["ring_wrap_decays"] > 0, chain_check
+    assert chain_check["ring_wrap_members"] > 0, chain_check
     emit(chain_check)
     counts = final.decay_counts.long()
     alive = final.alive
@@ -674,9 +790,10 @@ def phase_stats_slice(smi: str, worst: tuple[float, float]) -> dict:
           "max_abs_dev_from_bateman_final": dev_max, "card": smi})
     return {"name": "decay_stats", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/decay.cu",
             "replaces": "pyqmd_tpu/kernels/decay_pallas.py:78", "launches": launches,
-            "max_abs_err": worst[0], "max_rel_err": worst[1], "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": db["bound_ms"], "bound_by": db["bound_by"],
-            "library_ms": None}
+            "launches_per_frame": 1, "max_abs_err": worst[0], "max_rel_err": worst[1],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": db["bound_ms"],
+            "bound_by": db["bound_by"], "share": db["bound_ms"] / kernel_ms,
+            "library_ms": None, "B": C14_B, "per": "frame of 10 substeps"}
 
 
 def phase_stats_cpu_vs_card() -> None:
@@ -708,6 +825,7 @@ def main() -> int:
     phase_force_kernel()
     phase_overlap_kernel()
     kernels = phase_slice(smi)
+    kernels.insert(1, phase_he4_slice(smi))
     phase_cpu_vs_card()
     worst = phase_decay_kernel()
     kernels.append(phase_stats_slice(smi, worst))

@@ -3,9 +3,9 @@
 The batched full-physics ensemble frame and the decay-statistics frame of
 the JAX package, in PyTorch, with the ensemble analysis built on them
 (:mod:`pyqmd_tpu_torch.analysis`): plain tensor code for the frames, and
-hand-written CUDA kernels for the force + integrate step, the overlap
-projection and the statistics decay substep
-(:mod:`pyqmd_tpu_torch.kernels`). The tensor's device picks the path: CPU
+hand-written CUDA kernels for the force + integrate step (a tiled kernel
+and a sub-warp one for nuclei of up to 32 slots), the overlap projection
+and the statistics decay frame (:mod:`pyqmd_tpu_torch.kernels`). The tensor's device picks the path: CPU
 tensors run the plain PyTorch versions, CUDA tensors the kernels. This
 package imports no JAX; the JAX package is the reference the tests hold it
 against.

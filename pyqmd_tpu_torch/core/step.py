@@ -3,10 +3,10 @@
 In the full-physics frame each substep advances the ejecta, runs the decay
 check, and calls the force + integrate step; the frame ends with one
 overlap projection and the metrics (reference nuclear_sim.py:118-176). The
-decay-statistics frame runs only the decay check, one kernel call per
-substep. The force, overlap and decay passes go through the kernel
-wrappers, which take the plain PyTorch version for CPU tensors and the
-CUDA kernel for CUDA tensors.
+decay-statistics frame runs only the decay checks, all of a frame's
+substeps in one kernel call. The force, overlap and decay passes go through
+the kernel wrappers, which take the plain PyTorch version for CPU tensors
+and the CUDA kernel for CUDA tensors.
 
 The frame's scalars are computed in f32 in the JAX package's order, and
 every draw follows its key tree (``core/step.py:268-289`` there), so
@@ -23,7 +23,7 @@ from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core.decay import maybe_decay, pack_nucleon_bits, unpack_alive_ptype
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.core.overlap import _rand_u
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 from pyqmd_tpu_torch.state import ALPHA, NucleusState
@@ -115,7 +115,7 @@ def _batched_overlap(pos, alive, keys, cfg: SimConfig):
     return pos
 
 
-def _batched_frame_preamble(
+def _frame_clock(
     states: NucleusState,
     cfg: SimConfig,
     time_scale,
@@ -123,9 +123,8 @@ def _batched_frame_preamble(
     num_steps: int,
     physics_dt,
     raw_physics_dt,
-):
-    """Clock advance, :class:`FrameDynamics` and the per-nucleus key tree:
-    base key → 3-way split (substeps, overlap, next) → per-substep keys."""
+) -> tuple[NucleusState, FrameDynamics]:
+    """Clock advance and :class:`FrameDynamics`, host scalars in f32."""
     time_scale = _F32(time_scale)
     frame_dt = _F32(frame_dt)
     if physics_dt is None:
@@ -142,7 +141,23 @@ def _batched_frame_preamble(
         step_time=desired_dt / _F32(num_steps),
         raw_physics_dt=None if raw_physics_dt is None else _F32(raw_physics_dt),
     )
+    return states, dyn
 
+
+def _batched_frame_preamble(
+    states: NucleusState,
+    cfg: SimConfig,
+    time_scale,
+    frame_dt,
+    num_steps: int,
+    physics_dt,
+    raw_physics_dt,
+):
+    """:func:`_frame_clock` and the per-nucleus key tree: base key → 3-way
+    split (substeps, overlap, next) → per-substep keys."""
+    states, dyn = _frame_clock(
+        states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
+    )
     k3 = prng.split(states.rng, 3)  # (B, 3, 2)
     step_keys = prng.split(k3[:, 0], num_steps).transpose(0, 1)  # (S, B, 2)
     return states, dyn, k3, step_keys
@@ -195,20 +210,19 @@ def decay_ensemble_step(
     The key tree is :func:`ensemble_step`'s (the force step draws nothing;
     the overlap key is split but unused), so z, n, half_life, decay_counts,
     the chain log and rng equal the full-physics frame's bitwise; positions,
-    velocities and ejecta are left as they were. Each substep is one
-    :func:`decay_stats_substep` call on a carry cloned once per frame, with
-    alive/ptype packed into bitfields once per frame.
+    velocities and ejecta are left as they were. The substeps are one
+    :func:`decay_stats_frame` call on a carry cloned once per frame, with
+    alive/ptype packed into bitfields once per frame; on the card the
+    kernel derives the key tree itself, so none is built here.
     """
-    states, dyn, k3, step_keys = _batched_frame_preamble(
+    states, dyn = _frame_clock(
         states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
     )
-    step_keys = step_keys.contiguous()
     carry = states.replace(**{f: getattr(states, f).clone() for f in DECAY_FIELDS})
     bits = pack_nucleon_bits(states.alive, states.ptype)
-    for s in range(num_steps):
-        decay_stats_substep(carry, bits, cfg, step_keys[s], dyn)
+    rng = decay_stats_frame(carry, bits, states.rng, cfg, dyn, num_steps)
     alive, ptype = unpack_alive_ptype(*bits, states.alive.shape[-1])
-    states = carry.replace(alive=alive, ptype=ptype, rng=k3[:, 2].contiguous())
+    states = carry.replace(alive=alive, ptype=ptype, rng=rng)
 
     return states, _ensemble_metrics(states)
 

@@ -1,11 +1,12 @@
-// Per-nucleus arithmetic of the decay-statistics kernel (decay.cu): the
-// threefry2x32 draw, the decay probability, the branch pick, the chain
-// record's duration, the daughter half-life and the nucleon bitfield update.
-// Every function is __host__ __device__, so the same source also compiles
-// with a plain C++ compiler: the CPU tests run pq_decay_stats_nucleus over
-// every nucleus and hold it to the plain PyTorch version
-// (pyqmd_tpu_torch/core/decay.py, stats_only with packed_nucleons, over
-// pyqmd_tpu_torch/prng.py's uniforms).
+// Per-nucleus arithmetic of the decay-statistics kernels (decay.cu): the
+// threefry2x32 key split and draw, the decay probability, the branch pick,
+// the chain record's duration, the daughter half-life and the nucleon
+// bitfield update, for one substep or a whole frame. Every function is
+// __host__ __device__, so the same source also compiles with a plain C++
+// compiler: the CPU tests run pq_decay_stats_nucleus and
+// pq_decay_stats_frame_nucleus over every nucleus and hold them to the
+// plain PyTorch version (pyqmd_tpu_torch/core/decay.py, stats_only with
+// packed_nucleons, over pyqmd_tpu_torch/prng.py's keys and uniforms).
 //
 // Rounding follows the plain version operation by operation. Products and
 // sums go through pq_mul/pq_add/pq_sub (__fmul_rn/__fadd_rn on the device),
@@ -240,15 +241,23 @@ struct PqDecayView {
   float step_time;
 };
 
-// One statistics-only decay substep of nucleus i, in place
-// (core/decay.py:_apply_decay_from_draws with stats_only and
-// packed_nucleons, over uniforms 0-3 of its substep key). A nucleus that
-// does not decay reads its key and half-life and writes nothing.
-PQ_HD void pq_decay_stats_nucleus(const PqDecayView& v, int64_t i) {
-  const uint32_t k1 = (uint32_t)v.keys[2 * i];
-  const uint32_t k2 = (uint32_t)v.keys[2 * i + 1];
-  const float hl = v.half_life[i];
-  if (!(pq_uniform(k1, k2, 0u) < pq_decay_probability(hl, v.step_time))) return;
+// Key c of jax.random.split(key, m) for any m > c: counter (0, c) hashed
+// (prng.py:split, jax's _threefry_split_foldlike).
+PQ_HD void pq_split_key(uint32_t k1, uint32_t k2, uint32_t c, uint32_t* o1, uint32_t* o2) {
+  pq_threefry2x32(k1, k2, 0u, c, o1, o2);
+}
+
+// One statistics-only decay substep of nucleus i under substep key
+// (k1, k2), in place (core/decay.py:_apply_decay_from_draws with stats_only
+// and packed_nucleons, over uniforms 0-3 of the key). The caller holds the
+// nucleus's half-life in *hl_carry and its decay probability over
+// v.step_time in *p_carry; a decay writes the daughter's half-life to
+// *hl_carry and to memory and its probability to *p_carry. A nucleus that
+// does not decay touches no memory.
+PQ_HD void pq_decay_stats_step(const PqDecayView& v, int64_t i, uint32_t k1, uint32_t k2,
+                               float* hl_carry, float* p_carry) {
+  const float hl = *hl_carry;
+  if (!(pq_uniform(k1, k2, 0u) < *p_carry)) return;
 
   // Branch 1 iff u > p0 (decay_chains.py:218-229).
   const int32_t z = v.z[i], n = v.n[i];
@@ -264,8 +273,10 @@ PQ_HD void pq_decay_stats_nucleus(const PqDecayView& v, int64_t i) {
   const float tp = v.time_passed[i];
   const float duration = pq_chain_duration(tp, v.last_decay_time[i], hl, pq_uniform(k1, k2, 2u));
   const int64_t dcell = pq_cell(new_z, new_n);
-  v.half_life[i] = pq_half_life_from_row(pq_row_quad(v.rows, dcell, 0),
-                                         pq_row_quad(v.rows, dcell, 1).x, pq_uniform(k1, k2, 3u));
+  *hl_carry = pq_half_life_from_row(pq_row_quad(v.rows, dcell, 0),
+                                    pq_row_quad(v.rows, dcell, 1).x, pq_uniform(k1, k2, 3u));
+  v.half_life[i] = *hl_carry;
+  *p_carry = pq_decay_probability(*hl_carry, v.step_time);
 
   pq_adjust_nucleons(v.alive_bits + i * v.words, v.proton_bits + i * v.words, v.words, dtype);
 
@@ -284,8 +295,40 @@ PQ_HD void pq_decay_stats_nucleus(const PqDecayView& v, int64_t i) {
   v.n[i] = new_n;
 }
 
-// The view over the frame's carry, from the entry point's arguments (the
-// order of pyqmd_decay_stats in decay.cu).
+// One substep of nucleus i under its given substep key v.keys[i].
+PQ_HD void pq_decay_stats_nucleus(const PqDecayView& v, int64_t i) {
+  float hl = v.half_life[i];
+  float p = pq_decay_probability(hl, v.step_time);
+  pq_decay_stats_step(v, i, (uint32_t)v.keys[2 * i], (uint32_t)v.keys[2 * i + 1], &hl, &p);
+}
+
+// A whole statistics frame of nucleus i, whose frame key is v.keys[i] (the
+// member's rng): the frame's key tree (core/step.py), k3 = split(rng, 3),
+// substep s under split(k3[0], S)[s], then k3[2] as the next rng, written
+// to next_rng[i]. The substeps run in order on the carry, the half-life and
+// its decay probability in registers (recomputed only by a decay); the
+// frame clock (time_passed) is the same for every substep.
+PQ_HD void pq_decay_stats_frame_nucleus(const PqDecayView& v, int64_t i, int num_steps,
+                                        int64_t* next_rng) {
+  const uint32_t k1 = (uint32_t)v.keys[2 * i];
+  const uint32_t k2 = (uint32_t)v.keys[2 * i + 1];
+  uint32_t s1, s2, n1, n2;
+  pq_split_key(k1, k2, 0u, &s1, &s2);
+  pq_split_key(k1, k2, 2u, &n1, &n2);
+  float hl = v.half_life[i];
+  float p = pq_decay_probability(hl, v.step_time);
+  for (int s = 0; s < num_steps; ++s) {
+    uint32_t a, b;
+    pq_split_key(s1, s2, (uint32_t)s, &a, &b);
+    pq_decay_stats_step(v, i, a, b, &hl, &p);
+  }
+  next_rng[2 * i] = (int64_t)n1;
+  next_rng[2 * i + 1] = (int64_t)n2;
+}
+
+// The view over the frame's carry, from the entry points' arguments (the
+// order of pyqmd_decay_stats in decay.cu; `keys` are the substep keys, or
+// the frame keys for pyqmd_decay_stats_frame).
 inline PqDecayView pq_decay_view(void* z, void* n, void* chain_cursor, void* half_life,
                                  const void* time_passed, void* last_decay_time,
                                  void* decay_counts, void* alive_bits, void* proton_bits,

@@ -1,7 +1,7 @@
 """Where a frame's time goes, part by part.
 
     python -m pyqmd_tpu_torch.frame_profile              # every slice, first CUDA card
-    python -m pyqmd_tpu_torch.frame_profile u238_full    # named slices only
+    python -m pyqmd_tpu_torch.frame_profile he4_full     # named slices only
 
 For each slice that ``chip_smoke.py`` runs: the frame's wall time over five
 frames, one frame under ``torch.profiler`` (device kernels, their summed
@@ -10,16 +10,19 @@ of each part of the frame. Prints one JSON line per slice, after the
 card's name and power limit. On a CPU device the parts are host times and
 no idle share is given.
 
-- ``u238_full``: the full-physics frame of a U-238 ensemble at 10,240
-  nuclei, 20 substeps at 1e9 years per second (``make_frame_fn``). Parts:
-  the key tree, the ejecta advance and plain decay check of all substeps,
-  the force kernel's calls, the overlap pass (its angle draw and kernel
-  call) and the metrics.
+- ``u238_full`` and ``he4_full``: the full-physics frame of a U-238
+  ensemble (P=256, the tiled force kernel) and of a He-4 one (P=8, the
+  sub-warp force kernel), each at 10,240 nuclei and 20 substeps at 1e9
+  years per second (``make_frame_fn``). Parts: the key tree, the ejecta
+  advance and plain decay check of all substeps, the force kernel's calls,
+  the overlap pass (its angle draw and kernel call) and the metrics.
 - ``c14_survival`` and ``u238_chain``: the decay-statistics frame of C-14
   at 2,097,152 nuclei (``analysis.survival_curve``) and U-238 at 65,536
   (``analysis.chain_populations``), both at 10 substeps per frame and the
-  8-slot chain ring. Parts: key tree, carry clone, bitfield pack, the
-  decay-kernel calls, unpack, metrics.
+  8-slot chain ring. Parts, as the frame runs them: the clock advance,
+  the carry clone, the bitfield pack, the decay frame (one kernel launch
+  on the card, which derives the substep keys; on the CPU the plain
+  version, key tree included), unpack, metrics.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from pyqmd_tpu_torch.core import step
 from pyqmd_tpu_torch.core.decay import maybe_decay, pack_nucleon_bits, unpack_alive_ptype
 from pyqmd_tpu_torch.core.init import ensemble_init
 from pyqmd_tpu_torch.data.tables import half_life_host
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame
 from pyqmd_tpu_torch.kernels.forces import force_step
 
 # (name, (z, n), batch, frames, half-lives) of the statistics slices.
@@ -44,8 +47,11 @@ SLICES = (
     ("c14_survival", (6, 8), 2_097_152, 20, 2.0),
     ("u238_chain", (92, 146), 65_536, 30, 3.0),
 )
-# (name, (z, n), pad_to, batch, time scale) of the full-physics slice.
-FULL_SLICE = ("u238_full", (92, 146), 128, 10_240, 3.15576e16)
+# (name, (z, n), pad_to, batch, time scale) of the full-physics slices.
+FULL_SLICES = (
+    ("u238_full", (92, 146), 128, 10_240, 3.15576e16),
+    ("he4_full", (2, 2), 8, 10_240, 3.15576e16),
+)
 FRAME_DT = 1 / 60
 
 
@@ -127,30 +133,30 @@ def frame_breakdown(z: int, n: int, batch: int, frames: int, half_lives: float,
     states, walls, n_kernels, kernel_ms = _frame_profile(
         fn, ensemble_init(cfg, batch, seed=0, device=device), (sim_dt, 1.0), device)
 
-    adv, dyn, _, step_keys = step._batched_frame_preamble(
-        states, cfg, sim_dt, 1.0, substeps, cfg.effective_dt(), cfg.physics_dt)
-    step_keys = step_keys.contiguous()
+    def clock():
+        return step._frame_clock(states, cfg, sim_dt, 1.0, substeps, cfg.effective_dt(),
+                                 cfg.physics_dt)
+
+    adv, dyn = clock()
     bits = pack_nucleon_bits(adv.alive, adv.ptype)
     # The kernel works in place, so each call of the part (a warm-up and
-    # `reps` timed) runs the frame's substeps on a fresh copy of the carry,
-    # made before the timing: on one copy, calls after the first would find
-    # the frame's decays done and time a substep without them.
+    # `reps` timed) runs the frame on a fresh copy of the carry, made
+    # before the timing: on one copy, calls after the first would find the
+    # frame's decays done and time a frame without them.
     reps = 5
     copies = iter([(adv.replace(**{f: getattr(adv, f).clone() for f in DECAY_FIELDS}),
                     tuple(b.clone() for b in bits)) for _ in range(reps + 1)])
 
-    def decay_substeps():
+    def decay_frame():
         carry, cbits = next(copies)
-        for k in step_keys:
-            decay_stats_substep(carry, cbits, cfg, k, dyn)
+        decay_stats_frame(carry, cbits, adv.rng, cfg, dyn, substeps)
 
     parts = {
-        "key_tree": device_ms(lambda: step._batched_frame_preamble(
-            states, cfg, sim_dt, 1.0, substeps, cfg.effective_dt(), cfg.physics_dt), device),
+        "clock": device_ms(clock, device),
         "clone": device_ms(lambda: adv.replace(
             **{f: getattr(adv, f).clone() for f in DECAY_FIELDS}), device),
         "pack": device_ms(lambda: pack_nucleon_bits(adv.alive, adv.ptype), device),
-        f"decay_substeps_x{substeps}": device_ms(decay_substeps, device, reps),
+        "decay_frame": device_ms(decay_frame, device, reps),
         "unpack": device_ms(lambda: unpack_alive_ptype(*bits, cfg.max_particles), device),
         "metrics": device_ms(lambda: step._ensemble_metrics(adv), device),
     }
@@ -206,8 +212,9 @@ def main(names: list[str]) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    name, (z, n), pad_to, batch, time_scale = FULL_SLICE
-    if not names or name in names:
+    for name, (z, n), pad_to, batch, time_scale in FULL_SLICES:
+        if names and name not in names:
+            continue
         out = full_frame_breakdown(z, n, batch, pad_to=pad_to, time_scale=time_scale)
         print(json.dumps({"slice": name, **out, "card": card}), flush=True)
         torch.cuda.empty_cache()

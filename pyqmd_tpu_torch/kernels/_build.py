@@ -81,6 +81,8 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_float, _PTR, _PTR,
     ]
     lib.pyqmd_force_step.restype = ctypes.c_int
+    lib.pyqmd_force_step_small.argtypes = lib.pyqmd_force_step.argtypes
+    lib.pyqmd_force_step_small.restype = ctypes.c_int
     lib.pyqmd_overlap_step.argtypes = [_PTR] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, _PTR,
     ]
@@ -89,6 +91,10 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _PTR,
     ]
     lib.pyqmd_decay_stats.restype = ctypes.c_int
+    lib.pyqmd_decay_stats_frame.argtypes = [_PTR] * 18 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _PTR,
+    ]
+    lib.pyqmd_decay_stats_frame.restype = ctypes.c_int
     lib.pyqmd_error_string.argtypes = [ctypes.c_int]
     lib.pyqmd_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,17 +1,22 @@
-"""Wrapper of the CUDA decay-statistics kernel (``csrc/decay.cu``).
+"""Wrappers of the CUDA decay-statistics kernels (``csrc/decay.cu``).
 
-:func:`decay_stats_substep` runs one statistics-only decay substep for every
-nucleus and updates the frame's carry in place. CPU tensors take the plain
-version, :func:`pyqmd_tpu_torch.core.decay.maybe_decay` with
-``stats_only=True`` and ``packed_nucleons``, whose result is copied into the
-carry; CUDA tensors launch the kernel, or the call raises. The kernel
-replaces ``pyqmd_tpu/kernels/decay_pallas.py`` ``_decay_stats_kernel``.
+:func:`decay_stats_frame` runs a whole statistics frame for every nucleus,
+its substep keys derived in the kernel from the members' frame keys, and
+:func:`decay_stats_substep` one substep under given keys; both update the
+frame's carry in place. CPU tensors take the plain version,
+:func:`pyqmd_tpu_torch.core.decay.maybe_decay` with ``stats_only=True`` and
+``packed_nucleons`` (once per substep, under the frame's key tree built by
+:mod:`pyqmd_tpu_torch.prng`), whose result is copied into the carry; CUDA
+tensors launch the kernel, or the call raises. The kernels replace
+``pyqmd_tpu/kernels/decay_pallas.py`` ``_decay_stats_kernel`` and, in the
+frame form, the JAX frame's scan over it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import decay as _plain
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
@@ -48,8 +53,75 @@ def decay_stats_substep(
         for old, nb in zip(bits, new_bits):
             old.copy_(nb)
         return
+    _check_carry(state, bits, "decay_stats_substep")
+    b = state.z.shape[0]
+    _build.check_tensor(keys, "keys", (torch.int64,), (b, 2), dev)
+    rows = tables.rows_on(dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.pyqmd_decay_stats(
+            *_carry_ptrs(state, bits), keys.data_ptr(), rows.data_ptr(), b,
+            bits[0].shape[-1], state.chain_time.shape[-1], float(dyn.step_time),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.raise_on_error(err, "decay")
+    decay_stats_substep.launches += 1
+
+
+decay_stats_substep.launches = 0
+
+
+def decay_stats_frame(
+    state: NucleusState, bits: tuple, rng: torch.Tensor, cfg: SimConfig, dyn: FrameDynamics,
+    num_steps: int,
+) -> torch.Tensor:
+    """A statistics-only frame of ``num_steps`` substeps, in place; returns
+    the next rng.
+
+    ``state``, ``bits`` and ``dyn`` are as for :func:`decay_stats_substep`,
+    with ``state.time_passed`` the frame clock, already advanced: every
+    substep reads it. ``rng`` (B, 2) int64 are the members' frame keys; they
+    are only read. Substep s runs under ``split(split(rng, 3)[:, 0],
+    num_steps)[:, s]`` and the result is ``split(rng, 3)[:, 2]``, a new
+    tensor: the frame's key tree of :func:`core.step.ensemble_step
+    <pyqmd_tpu_torch.core.step.ensemble_step>`, which the kernel derives
+    per nucleus without storing it.
+    """
+    if num_steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+    dev = state.z.device
+    if dev.type == "cpu":
+        k3 = prng.split(rng, 3)  # (B, 3, 2)
+        step_keys = prng.split(k3[:, 0], num_steps).transpose(0, 1).contiguous()  # (S, B, 2)
+        for keys in step_keys:
+            decay_stats_substep(state, bits, cfg, keys, dyn)
+        return k3[:, 2].contiguous()
+    _check_carry(state, bits, "decay_stats_frame")
+    b = state.z.shape[0]
+    _build.check_tensor(rng, "rng", (torch.int64,), (b, 2), dev)
+    rows = tables.rows_on(dev)
+    lib = _build.library()
+    next_rng = torch.empty_like(rng)
+    with torch.cuda.device(dev):
+        err = lib.pyqmd_decay_stats_frame(
+            *_carry_ptrs(state, bits), rng.data_ptr(), next_rng.data_ptr(), rows.data_ptr(), b,
+            bits[0].shape[-1], state.chain_time.shape[-1], float(dyn.step_time),
+            int(num_steps), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.raise_on_error(err, "decay frame")
+    decay_stats_frame.launches += 1
+    return next_rng
+
+
+decay_stats_frame.launches = 0
+
+
+def _check_carry(state: NucleusState, bits: tuple, what: str) -> None:
+    """Raise unless the carry is what the kernels take: on one CUDA device,
+    the listed dtypes and shapes, contiguous, W and C at least 1."""
+    dev = state.z.device
     if dev.type != "cuda":
-        raise ValueError(f"decay_stats_substep runs on CPU or CUDA tensors, not {dev}")
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {dev}")
     b = state.z.shape[0]
     w = bits[0].shape[-1]
     c = state.chain_time.shape[-1]
@@ -66,22 +138,15 @@ def decay_stats_substep(
     for name in ("chain_z0", "chain_n0", "chain_dtype", "chain_z1", "chain_n1"):
         _build.check_tensor(getattr(state, name), name, i32, (b, c), dev)
     _build.check_tensor(state.chain_time, "chain_time", f32, (b, c), dev)
-    _build.check_tensor(keys, "keys", i64, (b, 2), dev)
-    rows = tables.rows_on(dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.pyqmd_decay_stats(
-            state.z.data_ptr(), state.n.data_ptr(), state.chain_cursor.data_ptr(),
-            state.half_life.data_ptr(), state.time_passed.data_ptr(),
-            state.last_decay_time.data_ptr(), state.decay_counts.data_ptr(),
-            bits[0].data_ptr(), bits[1].data_ptr(), state.chain_z0.data_ptr(),
-            state.chain_n0.data_ptr(), state.chain_dtype.data_ptr(),
-            state.chain_z1.data_ptr(), state.chain_n1.data_ptr(),
-            state.chain_time.data_ptr(), keys.data_ptr(), rows.data_ptr(), b, w, c,
-            float(dyn.step_time), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.raise_on_error(err, "decay")
-    decay_stats_substep.launches += 1
 
 
-decay_stats_substep.launches = 0
+def _carry_ptrs(state: NucleusState, bits: tuple) -> list:
+    """The carry's pointers in the order of the kernels' entry points."""
+    return [
+        state.z.data_ptr(), state.n.data_ptr(), state.chain_cursor.data_ptr(),
+        state.half_life.data_ptr(), state.time_passed.data_ptr(),
+        state.last_decay_time.data_ptr(), state.decay_counts.data_ptr(),
+        bits[0].data_ptr(), bits[1].data_ptr(), state.chain_z0.data_ptr(),
+        state.chain_n0.data_ptr(), state.chain_dtype.data_ptr(), state.chain_z1.data_ptr(),
+        state.chain_n1.data_ptr(), state.chain_time.data_ptr(),
+    ]

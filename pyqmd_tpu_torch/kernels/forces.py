@@ -1,10 +1,14 @@
-"""Wrapper of the CUDA force + integrate kernel (``csrc/forces.cu``).
+"""Wrapper of the CUDA force + integrate kernels (``csrc/forces.cu`` and
+``csrc/forces_small.cu``).
 
 :func:`force_step` has the contract of
 :func:`pyqmd_tpu_torch.core.forces.force_step`. CPU tensors take that plain
-version; CUDA tensors launch the kernel, or the call raises. The kernel
-replaces ``pyqmd_tpu/kernels/forces_pallas.py`` ``_force_kernel`` and
-``_force_kernel_packed``.
+version; CUDA tensors launch a kernel, or the call raises. The capacity P
+alone picks the kernel: P <= 32 the small-nucleus kernel (a group of
+next_pow2(P) lanes per nucleus, replacing ``_force_kernel_packed`` of
+``pyqmd_tpu/kernels/forces_pallas.py``), above that the tiled kernel (a
+block per nucleus, replacing ``_force_kernel``). Neither stands in for the
+other.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from pyqmd_tpu_torch.kernels import _build
 # The kernel takes up to 64 tiles of 32 slots; at P = 2000 its slots and
 # per-warp force buffers take 161 KB of shared memory, which it opts into.
 MAX_PARTICLES = 2000
+# The small-nucleus kernel's capacities: a nucleus within one warp.
+SMALL_MAX_PARTICLES = 32
 
 
 class ForceParams(ctypes.Structure):
@@ -82,18 +88,23 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig):
     _build.check_tensor(ptype, "ptype", (torch.int32,), (b, p), pos.device)
     _build.check_tensor(alive, "alive", (torch.bool, torch.uint8), (b, p), pos.device)
     lib = _build.library()
+    small = p <= SMALL_MAX_PARTICLES
+    entry = lib.pyqmd_force_step_small if small else lib.pyqmd_force_step
     out_pos = torch.empty_like(pos)
     out_vel = torch.empty_like(vel)
     params = force_params(cfg)
     with torch.cuda.device(pos.device):
-        err = lib.pyqmd_force_step(
+        err = entry(
             pos.data_ptr(), vel.data_ptr(), ptype.data_ptr(), alive.data_ptr(),
             out_pos.data_ptr(), out_vel.data_ptr(), b, p, float(dt),
             ctypes.addressof(params), torch.cuda.current_stream().cuda_stream,
         )
-    _build.raise_on_error(err, "force")
+    _build.raise_on_error(err, "small force" if small else "force")
     force_step.launches += 1
+    force_step.small_launches += int(small)
     return out_pos, out_vel
 
 
+# Launches of either kernel, and of the small-nucleus kernel among them.
 force_step.launches = 0
+force_step.small_launches = 0

@@ -48,14 +48,30 @@ static std::vector<char> g_smem;
 
 inline void pq_warp_barrier() { g_warp_barrier[threadIdx.x >> 5]->arrive_and_wait(); }
 
-inline float __shfl_sync(unsigned, float v, int src) {
+// Lane `src` of the caller's group of `width` lanes (src taken modulo
+// width), as CUDA defines it.
+inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   g_lane_float[w][l] = v;
   pq_warp_barrier();
-  const float r = g_lane_float[w][src & 31];
+  const float r = g_lane_float[w][(l & ~(width - 1)) | (src & (width - 1))];
   pq_warp_barrier();
   return r;
 }
+
+// Lane l ^ mask; a lane whose source lies in a later group of `width`
+// lanes keeps its own value, as CUDA defines it.
+inline float __shfl_xor_sync(unsigned, float v, int mask, int width = 32) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  g_lane_float[w][l] = v;
+  pq_warp_barrier();
+  const int src = l ^ mask;
+  const float r = src >= (l / width + 1) * width ? v : g_lane_float[w][src & 31];
+  pq_warp_barrier();
+  return r;
+}
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 inline float __shfl_down_sync(unsigned mask, float v, int offset) {
   const int l = threadIdx.x & 31;
@@ -78,7 +94,11 @@ inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+};
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }

@@ -16,12 +16,13 @@ import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (caps torch threads)
+from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import decay, forces, overlap
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.core.init import ensemble_init
 from pyqmd_tpu_torch.kernels import _build
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 
@@ -62,6 +63,37 @@ def test_force_kernel_matches_plain(dev, p, b, integrator):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
     for g, r in zip(fast, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("p,b", [(2, 301), (5, 77), (8, 70), (16, 33), (20, 45), (32, 19)])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_small_force_kernel_matches_plain(dev, p, b, integrator):
+    """P <= 32 takes the sub-warp kernel (B * next_pow2(P) not a multiple
+    of 32 for most cases; member 1 with no alive slot)."""
+    base = SimConfig.for_isotope(2, 2, pad_to=p, integrator=integrator)
+    pos, vel, ptype, alive, _ = _batch(dev, b, p, 12.0 if p <= 8 else 25.0, seed=p + b)
+    alive[1] = False
+    exact = dataclasses.replace(base, fast_math=False)
+    ref = forces.force_step(pos, vel, ptype, alive, DT, exact)
+    before, small_before = force_step.launches, force_step.small_launches
+    got = force_step(pos, vel, ptype, alive, DT, exact)
+    fast = force_step(pos, vel, ptype, alive, DT, dataclasses.replace(base, fast_math=True))
+    assert force_step.launches == before + 2 and force_step.small_launches == small_before + 2
+    for g, f, r in zip(got, fast, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(f, r, rtol=0, atol=5e-3)
+    assert torch.equal(got[0][~alive], pos[~alive]) and torch.equal(got[1][~alive], vel[~alive])
+    again = force_step(pos, vel, ptype, alive, DT, exact)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_force_kernel_route_is_set_by_capacity_alone(dev):
+    for p, small in ((32, 1), (33, 0)):
+        pos, vel, ptype, alive, _ = _batch(dev, 4, p, 20.0, seed=p)
+        before, small_before = force_step.launches, force_step.small_launches
+        force_step(pos, vel, ptype, alive, DT, SimConfig.for_isotope(2, 2, pad_to=p))
+        assert force_step.launches == before + 1
+        assert force_step.small_launches == small_before + small
 
 
 @pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (2000, 2)])
@@ -226,3 +258,55 @@ def test_decay_wrapper_rejects_what_the_kernel_does_not_take(dev):
         decay_stats_substep(st.replace(half_life=st.half_life.double()), bits, cfg, keys, dyn)
     with pytest.raises(ValueError):
         decay_stats_substep(st, bits, cfg, keys.t().contiguous().t(), dyn)
+
+
+def _plain_frame(st, bits, rng, cfg, dyn, num_steps):
+    """The statistics frame's plain version on the card: the key tree, then
+    maybe_decay per substep; returns the carry, bitfields and next rng."""
+    k3 = prng.split(rng, 3)
+    for keys in prng.split(k3[:, 0], num_steps).transpose(0, 1):
+        st, _, bits = decay.maybe_decay(st, cfg, keys.contiguous(), dyn, stats_only=True,
+                                        packed_nucleons=bits)
+    return st, bits, k3[:, 2]
+
+
+@pytest.mark.parametrize("zn,pad_to,b", [((6, 8), 8, 4099), ((82, 132), 8, 300),
+                                         ((92, 146), 8, 200)])
+def test_decay_frame_kernel_matches_plain(dev, zn, pad_to, b):
+    cfg, st, bits, rng, dyn = _decay_carry(dev, zn, pad_to, b, 1e9, seed=b)
+    want, want_bits, want_rng = _plain_frame(st, bits, rng, cfg, dyn, 10)
+    runs = []
+    for _ in range(2):
+        got = st.replace(**{f: getattr(st, f).clone() for f in DECAY_FIELDS})
+        got_bits = tuple(x.clone() for x in bits)
+        before = decay_stats_frame.launches
+        next_rng = decay_stats_frame(got, got_bits, rng, cfg, dyn, 10)
+        assert decay_stats_frame.launches == before + 1
+        runs.append((got, got_bits, next_rng))
+    got, got_bits, next_rng = runs[0]
+    assert torch.equal(next_rng, want_rng)
+    for f in DECAY_FIELDS:
+        if getattr(want, f).dtype == torch.float32:
+            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0,
+                                       msg=f)
+        else:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(getattr(runs[1][0], f), getattr(got, f)), f
+    assert all(torch.equal(a, w) for a, w in zip(got_bits, want_bits))
+    assert all(torch.equal(a, w) for a, w in zip(runs[1][1], got_bits))
+    assert torch.equal(runs[1][2], next_rng)
+    assert int((got.chain_cursor != st.chain_cursor).sum()) > b // 10
+
+
+def test_decay_frame_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, st, bits, rng, dyn = _decay_carry(dev, (6, 8), 8, 64, 1e9, seed=0)
+    with pytest.raises(TypeError):
+        decay_stats_frame(st, bits, rng.int(), cfg, dyn, 10)
+    with pytest.raises(ValueError):
+        decay_stats_frame(st, bits, rng.cpu(), cfg, dyn, 10)
+    with pytest.raises(ValueError):
+        decay_stats_frame(st, bits, rng.t().contiguous().t(), cfg, dyn, 10)
+    with pytest.raises(ValueError):
+        decay_stats_frame(st, (bits[0], bits[1][:8]), rng, cfg, dyn, 10)
+    with pytest.raises(ValueError):
+        decay_stats_frame(st, bits, rng, cfg, dyn, -1)

@@ -1,8 +1,10 @@
-"""The decay kernel's per-nucleus arithmetic (``csrc/decay_math.cuh``),
+"""The decay kernels' per-nucleus arithmetic (``csrc/decay_math.cuh``),
 compiled for the CPU with g++ through a small C shim, against the port's
-plain PyTorch version. ``pq_decay_stats_nucleus`` is the whole body of the
-CUDA kernel, so a wrong branch, slot, bit or draw shows up here without a
-GPU.
+plain PyTorch version. ``pq_decay_stats_nucleus`` (one substep under given
+keys) and ``pq_decay_stats_frame_nucleus`` (a whole frame, its keys split
+from the member's rng) are the whole bodies of the CUDA kernels, so a
+wrong branch, slot, bit, key or draw shows up here without a GPU; the key
+split is also held to ``jax.random.split``.
 
 Draws (threefry2x32 and the uniform mantissa trick) and every integer field,
 the bitfield words included, must be bitwise equal. Floats go through exp
@@ -16,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,7 +31,7 @@ from pyqmd_tpu_torch.core import decay
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.core.init import ensemble_init, mixed_ensemble_init
 from pyqmd_tpu_torch.data import tables
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.state import state_to_numpy
 
 CSRC = Path(__file__).resolve().parent.parent / "pyqmd_tpu_torch" / "csrc"
@@ -43,6 +47,25 @@ void shim_decay_stats(void* z, void* n, void* cc, void* hl, const void* tp, void
   const PqDecayView v = pq_decay_view(z, n, cc, hl, tp, ld, counts, ab, pb, cz0, cn0, cdt, cz1,
                                       cn1, ct, keys, rows, W, C, step_time);
   for (int64_t i = 0; i < B; ++i) pq_decay_stats_nucleus(v, i);
+}
+
+void shim_decay_frame(void* z, void* n, void* cc, void* hl, const void* tp, void* ld,
+                      void* counts, void* ab, void* pb, void* cz0, void* cn0, void* cdt,
+                      void* cz1, void* cn1, void* ct, const void* rng, void* next_rng,
+                      const void* rows, int B, int W, int C, float step_time, int num_steps) {
+  const PqDecayView v = pq_decay_view(z, n, cc, hl, tp, ld, counts, ab, pb, cz0, cn0, cdt, cz1,
+                                      cn1, ct, rng, rows, W, C, step_time);
+  for (int64_t i = 0; i < B; ++i) pq_decay_stats_frame_nucleus(v, i, num_steps, (int64_t*)next_rng);
+}
+
+void shim_split(const int64_t* keys, int B, int m, int64_t* out) {
+  for (int i = 0; i < B; ++i)
+    for (int c = 0; c < m; ++c) {
+      uint32_t o1, o2;
+      pq_split_key((uint32_t)keys[2 * i], (uint32_t)keys[2 * i + 1], (uint32_t)c, &o1, &o2);
+      out[(i * m + c) * 2] = o1;
+      out[(i * m + c) * 2 + 1] = o2;
+    }
 }
 
 void shim_uniform(const int64_t* keys, int B, int m, float* out) {
@@ -110,17 +133,28 @@ def _hot_state(states, rng, step_time):
     )
 
 
+def _carry_ptrs(carry, bits):
+    return [
+        *(_ptr(getattr(carry, f)) for f in ("z", "n", "chain_cursor", "half_life",
+                                            "time_passed", "last_decay_time", "decay_counts")),
+        _ptr(bits[0]), _ptr(bits[1]),
+        *(_ptr(getattr(carry, f)) for f in ("chain_z0", "chain_n0", "chain_dtype", "chain_z1",
+                                            "chain_n1", "chain_time")),
+    ]
+
+
 def _shim_substep(shim, carry, bits, keys, rows, step_time):
     b, w = bits[0].shape
-    shim.shim_decay_stats(
-        *(_ptr(getattr(carry, f)) for f in ("z", "n", "chain_cursor", "half_life",
-                                            "time_passed", "last_decay_time",
-                                            "decay_counts")),
-        _ptr(bits[0]), _ptr(bits[1]),
-        *(_ptr(getattr(carry, f)) for f in ("chain_z0", "chain_n0", "chain_dtype",
-                                            "chain_z1", "chain_n1", "chain_time")),
-        _ptr(keys), _ptr(rows), b, w, carry.chain_time.shape[-1], ctypes.c_float(step_time),
-    )
+    shim.shim_decay_stats(*_carry_ptrs(carry, bits), _ptr(keys), _ptr(rows), b, w,
+                          carry.chain_time.shape[-1], ctypes.c_float(step_time))
+
+
+def _shim_frame(shim, carry, bits, rng, rows, step_time, num_steps):
+    b, w = bits[0].shape
+    next_rng = torch.empty_like(rng)
+    shim.shim_decay_frame(*_carry_ptrs(carry, bits), _ptr(rng), _ptr(next_rng), _ptr(rows), b,
+                          w, carry.chain_time.shape[-1], ctypes.c_float(step_time), num_steps)
+    return next_rng
 
 
 def _clone(carry, bits):
@@ -182,6 +216,85 @@ def test_nucleus_transition_matches_plain(shim, case):
     assert fired > carry.z.shape[0] // 2
     if case == "mixed":
         assert modes & 0b1111110 == 0b1011110, bin(modes)  # α, β-, β+, γ, p
+
+
+def test_split_key_is_jax_random_split_bitwise(shim):
+    keys = _keys(np.random.default_rng(9), 257)
+    out = torch.empty(257, 12, 2, dtype=torch.int64)
+    shim.shim_split(_ptr(keys), 257, 12, _ptr(out))
+    wrapped = jax.vmap(jax.random.wrap_key_data)(jnp.asarray(keys.numpy(), jnp.uint32))
+    ref = jax.vmap(lambda k: jax.random.key_data(jax.random.split(k, 12)))(wrapped)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref).astype(np.int64))
+    assert torch.equal(out, prng.split(keys, 12))
+
+
+# name: (state, step time); the frames run 10 substeps on _hot_state's clock.
+FRAME_CASES = {
+    # β- into a stable daughter.
+    "c14": (lambda: ensemble_init(SimConfig.for_isotope(6, 8, pad_to=8, max_chain_log=8), 512,
+                                  seed=4, device="cpu"), 1e6),
+    # β- into β- into a 164 µs α: several decays in one frame.
+    "pb214": (lambda: ensemble_init(SimConfig.for_isotope(82, 132, pad_to=8, max_chain_log=8),
+                                    512, seed=5, device="cpu"), 3e2),
+    # P=240 (the last word half full), the 8-slot ring wrapping.
+    "u238": (lambda: ensemble_init(SimConfig.for_isotope(92, 146, pad_to=8, max_chain_log=8), 256,
+                                   seed=6, device="cpu"), 1e6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FRAME_CASES))
+def test_frame_transition_matches_the_plain_frame(shim, case):
+    """pq_decay_stats_frame_nucleus over every nucleus, 10 substeps from the
+    members' rng, against the plain frame (the key tree, then maybe_decay
+    per substep): every integer field, bitfield word and the next rng
+    bitwise; a member's second decay in a frame sees its new half-life and
+    (Z, N)."""
+    make, step_time = FRAME_CASES[case]
+    states = make()
+    cfg = SimConfig(z=int(states.z[0]), n=int(states.n[0]), max_particles=states.alive.shape[1],
+                    max_chain_log=states.chain_time.shape[1])
+    rng = np.random.default_rng(100 + len(case))
+    step_time = np.float32(step_time)
+    dyn = FrameDynamics(np.float32(1.0), np.float32(10.0), np.float32(cfg.effective_dt()),
+                        step_time, None)
+    carry = _hot_state(states, rng, step_time)
+    if case == "pb214":  # the parent within a substep, then the chain's own half-lives
+        carry = carry.replace(half_life=states.half_life * 1e-3)
+    bits = decay.pack_nucleon_bits(states.alive, states.ptype)
+    frame_rng = _keys(rng, carry.z.shape[0])
+    rows = tables.rows_on("cpu")
+
+    # The plain frame, substep by substep, with its draws checked for ties.
+    want, want_bits = _clone(carry, bits)
+    k3 = prng.split(frame_rng, 3)
+    for keys in prng.split(k3[:, 0], 10).transpose(0, 1).contiguous():
+        u0 = prng.uniform(keys, (1,))[:, 0]
+        assert _near_ties(u0, want.half_life, step_time) == 0, "a draw sits at its probability"
+        decay_stats_substep(want, want_bits, cfg, keys, dyn)
+    # The CPU wrapper of the frame kernel is that plain frame.
+    wrapped, wrapped_bits = _clone(carry, bits)
+    next_plain = decay_stats_frame(wrapped, wrapped_bits, frame_rng, cfg, dyn, 10)
+    assert torch.equal(next_plain, k3[:, 2])
+    for f in DECAY_FIELDS:
+        assert torch.equal(getattr(wrapped, f), getattr(want, f)), f
+    assert all(torch.equal(a, b) for a, b in zip(wrapped_bits, want_bits))
+
+    got, got_bits = _clone(carry, bits)
+    next_rng = _shim_frame(shim, got, got_bits, frame_rng, rows, step_time, 10)
+    assert torch.equal(next_rng, k3[:, 2])
+    w, g = state_to_numpy(want), state_to_numpy(got)
+    for f in INT_CARRY:
+        np.testing.assert_array_equal(g[f], w[f], err_msg=f)
+    for a, c in zip(got_bits, want_bits):
+        assert torch.equal(a, c)
+    for f in FLOAT_CARRY:
+        tp.assert_rel_close(g[f], w[f], 1e-6, f)
+    fired = want.chain_cursor - carry.chain_cursor
+    assert int((fired > 0).sum()) > carry.z.shape[0] // 4
+    if case != "c14":
+        assert int((fired > 1).sum()) > 0  # second decays in the frame
+    c = cfg.max_chain_log
+    assert int(((carry.chain_cursor // c) != (want.chain_cursor // c)).sum()) > 0  # ring wraps
 
 
 def test_uniforms_are_jax_random_uniform_bitwise(shim):

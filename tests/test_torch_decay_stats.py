@@ -30,7 +30,7 @@ from pyqmd_tpu.kernels import decay_pallas
 from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.core import decay, step
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.state import state_to_numpy
 
 TRAJECTORY = ("z", "n", "decay_counts", "chain_z0", "chain_n0", "chain_dtype", "chain_z1",
@@ -220,6 +220,36 @@ def test_decay_frames_match_the_reference(monkeypatch, case, backend):
     assert counts.sum() > 5
     if case in ("u238", "mixed"):
         assert counts[1] > 0  # alpha decays: two-nucleon removals pinned
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("case", ["c14", "pb214", "u238", "mixed"])
+def test_frame_wrapper_on_cpu_is_the_reference_frame(monkeypatch, case, backend):
+    """``decay_stats_frame`` on CPU tensors, called as the port's frame
+    calls it (clock advanced, carry cloned, nucleons packed), against the
+    JAX package's ``decay_ensemble_step``: its next rng and the carry's
+    fields, alive and ptype bitwise; the caller's rng is only read."""
+    cfg, jst, ts, frame_dt = _frame_case(case)
+    if backend == "pallas_interpret":
+        monkeypatch.setattr(decay_pallas, "decay_stats_substep_t",
+                            functools.partial(decay_pallas.decay_stats_substep_t,
+                                              interpret=True))
+        cfg = dataclasses.replace(cfg, decay_backend="pallas")
+    pcfg = tp.port_cfg(cfg)
+    pst = tp.to_port(jst)
+    rng_before = pst.rng.clone()
+    ref, _ = jax.jit(lambda s: jax_decay_step(s, cfg, ts, frame_dt, 5))(jst)
+    adv, dyn = step._frame_clock(pst, pcfg, ts, frame_dt, 5, None, None)
+    carry = adv.replace(**{f: getattr(adv, f).clone() for f in DECAY_FIELDS})
+    bits = decay.pack_nucleon_bits(adv.alive, adv.ptype)
+    before = decay_stats_frame.launches
+    rng = decay_stats_frame(carry, bits, adv.rng, pcfg, dyn, 5)
+    assert decay_stats_frame.launches == before  # the plain version ran
+    assert torch.equal(pst.rng, rng_before) and not torch.equal(rng, rng_before)
+    alive, ptype = decay.unpack_alive_ptype(*bits, pcfg.max_particles)
+    got = carry.replace(alive=alive, ptype=ptype, rng=rng)
+    _assert_trajectories_equal(tp.jax_to_numpy(ref), state_to_numpy(got))
+    assert int(np.asarray(ref.decay_counts).sum()) > 0
 
 
 def test_decay_frame_walks_the_full_frame_trajectories():

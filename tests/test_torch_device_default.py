@@ -3,6 +3,10 @@ another device. Where no CUDA device is present such a call raises; it
 never carries on on the CPU. Whether there is a card is decided inside the
 test, never at import."""
 
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -50,3 +54,15 @@ def test_entry_point_defaults_to_the_card(name):
         with pytest.raises((AssertionError, RuntimeError)):
             call()
     assert _device_of(call(device="cpu")) in ("cpu", None)
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "force_times.py"])
+def test_card_scripts_refuse_to_run_without_a_card(script):
+    """The measurement scripts never fall back to the CPU: without a CUDA
+    device they exit nonzero and print no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, str(repo / script)], cwd=repo, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and proc.stdout == "", proc.stdout

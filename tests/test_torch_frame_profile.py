@@ -1,5 +1,5 @@
-"""The statistics frame's part-by-part profile runs on the CPU at a small
-size and times every part (on a card it is run as
+"""The frames' part-by-part profiles run on the CPU at a small size and
+time every part (on a card they are run as
 ``python -m pyqmd_tpu_torch.frame_profile``)."""
 
 import math
@@ -12,11 +12,19 @@ def test_frame_breakdown_times_every_part_on_cpu():
     out = frame_profile.frame_breakdown(6, 8, batch=64, frames=20, half_lives=2.0, substeps=3,
                                         device="cpu")
     assert out["B"] == 64 and out["P"] == 16 and len(out["frame_ms"]) == 5
-    assert set(out["parts_ms"]) == {"key_tree", "clone", "pack", "decay_substeps_x3",
-                                    "unpack", "metrics"}
+    assert set(out["parts_ms"]) == {"clock", "clone", "pack", "decay_frame", "unpack",
+                                    "metrics"}
     assert all(math.isfinite(v) and v > 0 for v in out["parts_ms"].values())
     assert out["profiled_kernels"] == 0 and out["idle_share"] is None
     assert [s[0] for s in frame_profile.SLICES] == ["c14_survival", "u238_chain"]
+
+
+def test_he4_full_frame_breakdown_times_every_part_on_cpu():
+    out = frame_profile.full_frame_breakdown(2, 2, batch=4, substeps=2, pad_to=8, device="cpu")
+    assert out["B"] == 4 and out["P"] == 8 and len(out["frame_ms"]) == 5
+    assert set(out["parts_ms"]) == {"key_tree", "ejecta_decay_x2", "force_kernel_x2",
+                                    "overlap", "metrics"}
+    assert all(math.isfinite(v) and v > 0 for v in out["parts_ms"].values())
 
 
 def test_full_frame_breakdown_times_every_part_on_cpu():
@@ -26,4 +34,4 @@ def test_full_frame_breakdown_times_every_part_on_cpu():
                                     "overlap", "metrics"}
     assert all(math.isfinite(v) and v > 0 for v in out["parts_ms"].values())
     assert out["profiled_kernels"] == 0 and out["idle_share"] is None
-    assert frame_profile.FULL_SLICE[0] == "u238_full"
+    assert [s[0] for s in frame_profile.FULL_SLICES] == ["u238_full", "he4_full"]

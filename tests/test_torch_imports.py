@@ -33,7 +33,7 @@ _PROBE = textwrap.dedent(
     from pyqmd_tpu_torch import SimConfig
     from pyqmd_tpu_torch.kernels.forces import force_step
     from pyqmd_tpu_torch.kernels.overlap import overlap_step
-    from pyqmd_tpu_torch.kernels.decay import decay_stats_substep
+    from pyqmd_tpu_torch.kernels.decay import decay_stats_frame, decay_stats_substep
     from pyqmd_tpu_torch import analysis, make_decay_frame_fn, ensemble_init
     cfg = SimConfig.for_isotope(2, 2, pad_to=8)
     pos = torch.full((3, 8, 2), 400.0) + torch.arange(16.0).reshape(1, 8, 2)
@@ -44,7 +44,8 @@ _PROBE = textwrap.dedent(
         ensemble_init(SimConfig.for_isotope(6, 8), 4, device="cpu"), 1e11, 1.0)
     assert analysis.half_life_host(6, 8) > 0 and states.z.shape == (4,)
     assert force_step.launches == 0 and overlap_step.launches == 0
-    assert decay_stats_substep.launches == 0
+    assert decay_stats_substep.launches == 0 and decay_stats_frame.launches == 0
+    assert force_step.small_launches == 0
     assert _build.library.cache_info().currsize == 0
     print("MODULES", len(names))
     """

@@ -1,14 +1,19 @@
 """The force and overlap kernels' CUDA source, run on the CPU.
 
-``csrc/forces.cu`` and ``csrc/overlap.cu`` are compiled with g++ against
+``csrc/forces.cu``, ``csrc/forces_small.cu`` and ``csrc/overlap.cu`` are
+compiled with g++ against
 ``tests/cuda_emulation.h``, which runs each CUDA thread as a std::thread
 and meets a warp's shuffles and votes at a barrier, so the tile schedule,
 the shuffles and the per-warp sums run as written. The results are held to
 the plain PyTorch versions at the kernel bars (rtol = atol = 1e-4 exact,
 2e-4 for the dense cluster, atol 5e-3 fast-math; the host build has no
 ``rcp.approx``/``ex2.approx``, so fast-math here checks the reciprocal form),
-dead slots pass through bitwise, and two launches agree bitwise. Small
-sizes only: one host thread per CUDA thread. The card runs the same
+dead slots pass through bitwise, and two launches agree bitwise. The
+small-nucleus kernel's cases have batches whose lane count is not a
+multiple of 32, so the grid's last warp holds lanes past the batch (a lane
+that left before a shuffle would deadlock the emulated warp), capacities
+that are not powers of two, and a nucleus with no alive slot. Small sizes
+only: one host thread per CUDA thread. The card runs the same
 sources built by nvcc (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
@@ -41,6 +46,16 @@ CASES = {
     "one_alive_and_none": (40, 2, 30.0, 0.0),
     "dense": (64, 2, 4.0, 0.5),
 }
+# The small-nucleus kernel's cases (P <= 32), same layout; member 1 has no
+# alive slot, and B * next_pow2(P) is not a multiple of 32 except at P=20, 32.
+SMALL_CASES = {
+    "p2": (2, 7, 3.0, 0.9),
+    "p5": (5, 9, 8.0, 0.8),
+    "p8": (8, 13, 12.0, 0.7),
+    "p16": (16, 5, 20.0, 0.8),
+    "p20": (20, 3, 25.0, 0.85),
+    "p32": (32, 3, 30.0, 0.9),
+}
 
 
 def _emulated_source(path: Path) -> str:
@@ -58,7 +73,7 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("emulation")
     (d / "cuda_runtime.h").write_text(f'#include "{HERE / "cuda_emulation.h"}"\n')
     sources = []
-    for name in ("forces", "overlap"):
+    for name in ("forces", "forces_small", "overlap"):
         (d / f"{name}.cpp").write_text(_emulated_source(CSRC / f"{name}.cu"))
         sources.append(str(d / f"{name}.cpp"))
     out = d / "libemulated.so"
@@ -72,13 +87,14 @@ def lib(tmp_path_factory):
     ptr = ctypes.c_void_p
     lib.pyqmd_force_step.argtypes = [ptr] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                                  ptr, ptr]
+    lib.pyqmd_force_step_small.argtypes = lib.pyqmd_force_step.argtypes
     lib.pyqmd_overlap_step.argtypes = [ptr] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                                    ctypes.c_float, ctypes.c_float, ptr]
     return lib
 
 
 def _batch(name):
-    p, b, spread, frac = CASES[name]
+    p, b, spread, frac = CASES[name] if name in CASES else SMALL_CASES[name]
     g = np.random.default_rng(p + b)
     pos = g.uniform(400 - spread / 2, 400 + spread / 2, (b, p, 2)).astype(np.float32)
     vel = g.normal(0, 2, (b, p, 2)).astype(np.float32)
@@ -92,17 +108,19 @@ def _batch(name):
     if name == "dense":
         pos[:, :3] = 400.0  # a coincident triple
         alive[:, :3] = True
+    if name in SMALL_CASES:
+        alive[1] = False
     return [torch.from_numpy(a) for a in (pos, vel, ptype, alive, u)]
 
 
-def _force(lib, pos, vel, ptype, alive, cfg):
+def _force(lib, pos, vel, ptype, alive, cfg, entry="pyqmd_force_step"):
     b, p = ptype.shape
     out_pos, out_vel = torch.empty_like(pos), torch.empty_like(vel)
     alive8 = alive.to(torch.uint8)
     params = force_params(cfg)
-    err = lib.pyqmd_force_step(pos.data_ptr(), vel.data_ptr(), ptype.data_ptr(),
-                               alive8.data_ptr(), out_pos.data_ptr(), out_vel.data_ptr(), b, p,
-                               DT, ctypes.addressof(params), None)
+    err = getattr(lib, entry)(pos.data_ptr(), vel.data_ptr(), ptype.data_ptr(),
+                              alive8.data_ptr(), out_pos.data_ptr(), out_vel.data_ptr(), b, p,
+                              DT, ctypes.addressof(params), None)
     assert err == 0
     return out_pos, out_vel
 
@@ -125,6 +143,39 @@ def test_force_kernel_source_matches_plain(lib, name, integrator):
     again = _force(lib, pos, vel, ptype, alive, exact)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
     assert not torch.equal(got[1][alive], vel[alive]) or not alive.any()
+
+
+@pytest.mark.parametrize("fast_math", [False, True])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+@pytest.mark.parametrize("name", sorted(SMALL_CASES))
+def test_small_force_kernel_source_matches_plain(lib, name, integrator, fast_math):
+    pos, vel, ptype, alive, _ = _batch(name)
+    p = pos.shape[1]
+    cfg = SimConfig.for_isotope(2, 2, pad_to=p, integrator=integrator, fast_math=fast_math)
+    ref = forces.force_step(pos, vel, ptype, alive,
+                            DT, dataclasses.replace(cfg, fast_math=False))
+    got = _force(lib, pos, vel, ptype, alive, cfg, "pyqmd_force_step_small")
+    for g, r in zip(got, ref):
+        if fast_math:
+            torch.testing.assert_close(g, r, rtol=0, atol=5e-3)
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    dead = ~alive
+    assert not alive[1].any() and dead.any()
+    assert torch.equal(got[0][dead], pos[dead]) and torch.equal(got[1][dead], vel[dead])
+    again = _force(lib, pos, vel, ptype, alive, cfg, "pyqmd_force_step_small")
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert not torch.equal(got[1][alive], vel[alive])
+
+
+def test_small_force_kernel_refuses_larger_nuclei(lib):
+    pos, vel, ptype, alive, _ = _batch("p100_dead_tile")
+    params = force_params(SimConfig.for_isotope(2, 2, pad_to=100))
+    out = torch.full_like(pos, 7.0)
+    err = lib.pyqmd_force_step_small(pos.data_ptr(), vel.data_ptr(), ptype.data_ptr(),
+                                     alive.to(torch.uint8).data_ptr(), out.data_ptr(),
+                                     out.data_ptr(), 2, 100, DT, ctypes.addressof(params), None)
+    assert err != 0 and bool((out == 7.0).all())
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

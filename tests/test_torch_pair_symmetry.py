@@ -10,8 +10,9 @@ and sums so that nvcc contracts nothing either).
   its float neighbours.
 - The fast-math form (reciprocals folded on the host) stays within the
   kernel bar of 5e-3 of the plain force law.
-- The rounds of a tile pair meet every pair of alive slots exactly once,
-  and the launch shape fits Hopper's shared memory at every capacity.
+- The rounds of a tile pair, and of the small-nucleus kernel's groups of
+  2-32 lanes, meet every pair of alive slots exactly once, and the launch
+  shape fits Hopper's shared memory at every capacity.
 """
 
 import ctypes
@@ -76,6 +77,9 @@ void shim_pair_force(const float* dist2, const int* pp, const int* same, int n,
 unsigned shim_round_pairs(unsigned alive_i, unsigned alive_j, int r, int diag) {
   return pq_round_pairs(alive_i, alive_j, r, diag != 0);
 }
+unsigned shim_sub_round_pairs(unsigned alive, int d, int sub) {
+  return pq_sub_round_pairs(alive, d, sub);
+}
 int shim_first_round(int diag) { return pq_first_round(diag != 0); }
 int shim_end_round(int diag) { return pq_end_round(diag != 0); }
 int shim_max_warps(void) { return kPqMaxWarps; }
@@ -104,6 +108,7 @@ def shim(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(lib))
     lib.shim_round_pairs.restype = ctypes.c_uint
+    lib.shim_sub_round_pairs.restype = ctypes.c_uint
     lib.shim_max_smem.restype = ctypes.c_long
     return lib
 
@@ -233,6 +238,29 @@ def test_rounds_meet_every_alive_pair_once(shim, diag):
             want = {(a, b) for a in alive_i for b in alive_j}
         assert set(met) == want, hex(mi)
         assert all(c == 1 for c in met.values()), hex(mi)
+
+
+@pytest.mark.parametrize("sub", [2, 4, 8, 16, 32])
+def test_sub_warp_rounds_meet_every_alive_pair_once(shim, sub):
+    """Rounds d = 1 .. sub/2 of the small-nucleus kernel: lane l = g0 + s
+    meets lane g0 + ((s + d) & (sub - 1)) of its own group, and over the
+    rounds every pair of alive lanes inside a group is met once."""
+    rng = np.random.default_rng(sub)
+    masks = [0xFFFFFFFF, 0, 0x1, 0x80000001, 0x0F0F0F0F, 0xAAAAAAAA]
+    masks += [int(m) for m in rng.integers(0, 2**32, 60, dtype=np.uint64)]
+    for mask in masks:
+        met = {}
+        for d in range(1, sub // 2 + 1):
+            bits = shim.shim_sub_round_pairs(mask, d, sub)
+            for lane in range(32):
+                if bits >> lane & 1:
+                    g0 = lane - lane % sub
+                    key = tuple(sorted((lane, g0 + (lane - g0 + d) % sub)))
+                    met[key] = met.get(key, 0) + 1
+        alive = [l for l in range(32) if mask >> l & 1]
+        want = {(a, b) for a in alive for b in alive if a < b and a // sub == b // sub}
+        assert set(met) == want, hex(mask)
+        assert all(c == 1 for c in met.values()), hex(mask)
 
 
 def test_tile_launch_fits_shared_memory(shim):
