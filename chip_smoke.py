@@ -45,7 +45,31 @@ nonzero, and nothing catches it:
    form;
 8. the same seed through the statistics frame on the CPU and on the card,
    C-14 B=4096 and U-238 B=64: integer fields and RNG streams bitwise,
-   floats within 1e-6 relative.
+   floats within 1e-6 relative;
+9. the host loop on an ensemble at full width: ``Simulation`` of 10240
+   U-238 nuclei, then of 10240 He-4 nuclei, at the ``billion`` preset: a
+   warm-up frame and 8 ``frame()`` calls (frames retire from the 4-deep
+   queue), launch counts per frame, ``status()`` against sums over the
+   state, the NaN guard quiet, then the same frames by
+   ``run(9, fused=True)`` on a second Simulation of the same seed, every field
+   bitwise equal; nucleus-substeps/s of both forms, with the bare
+   ``make_frame_fn`` loop timed before and after them; and, with
+   PyTorch's synchronisation check raising, three frames, a fused run and
+   two rasterized frames that make no synchronising call, and a
+   ``status()`` that makes one;
+10. Simulation on one U-238 nucleus, CPU against card: 40 frames at
+    ``billion`` and one forced decay; integer fields, rng and the decay
+    log equal, pos/vel within 1e-3 or the first frame that leaves it;
+    the single-nucleus frame time;
+11. the command line in process (``cli.main``): an ensemble run with
+    ``--save --render --status-json``, ``--load`` of that file, a lone
+    U-238 to an animated GIF with panels, ``--survival`` of C-14 at
+    2,097,152 (fit within 1%), ``--populations`` with ``--theory`` for
+    U-238 at 65,536, ``--list-isotopes``; the files parse;
+12. the rasterizer, CPU against card, on an evolved U-238 state with live
+    ejecta at 800x600 (zoom 15) and 160x120: differing pixels (at most
+    0.1% of the frame) and the card's time per frame, at the host's launch
+    pace and for one frame queued behind a spin kernel.
 
 A kernel's bound is the least time the card could take for the same work,
 from this run's inputs: the larger of the bytes it must move (each input
@@ -57,27 +81,39 @@ force law counts 40 flops and 3 transcendentals per pair (the JAX
 package's cost model, ``forces_pallas.py:474, 485``); a threefry2x32 hash
 80 int32 operations.
 
-The line before the last is the kernels' JSON summary; the last line is
+Every phase prints its seconds. The line before the last is the kernels'
+JSON summary (``launches`` from phases 4 and 7, ``sim_launches`` from
+phase 9); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import logging
 import math
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from pyqmd_tpu_torch import (
     SimConfig,
+    Simulation,
     analysis,
+    cli,
     ensemble_init,
+    load_checkpoint,
     make_decay_frame_fn,
     make_frame_fn,
     mixed_ensemble_init,
@@ -93,6 +129,7 @@ from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import SMALL_MAX_PARTICLES, force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
+from pyqmd_tpu_torch.render import render_frame, render_to_host
 from pyqmd_tpu_torch.state import DECAY_ALPHA, DECAY_BETA_MINUS, DECAY_BETA_PLUS, PROTON
 from pyqmd_tpu_torch.state import DECAY_NEUTRON_EMISSION, DECAY_PROTON_EMISSION
 from pyqmd_tpu_torch.state import state_to_numpy
@@ -115,6 +152,8 @@ STATS_FLOATS = ("half_life", "last_decay_time", "chain_time")
 STATS_REL_TOL = 1e-6
 C14_B = 2_097_152  # the README's 2M-nucleus C-14 statistics
 U238_CHAIN_B = 65_536
+SIM_FRAMES = 8  # after the warm-up frame: enough to retire frames from the 4-deep queue
+PIXEL_DIFF_LIMIT = 1e-3  # share of a frame's pixels the card may draw unlike the CPU
 
 # Published H100 SXM peaks (NVIDIA's data sheet and Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
@@ -815,21 +854,361 @@ def phase_stats_cpu_vs_card() -> None:
               "decays": int(km["total_decay_counts"].sum()), "max_rel_diff": rel})
 
 
+class _ErrorLog(logging.Handler):
+    """Collects the simulation's ERROR records (the NaN guard logs there)."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_sim_ensemble(smi: str, z: int, n: int, pad_to: int) -> dict:
+    """``Simulation`` on 10240 nuclei: frames in flight, then a fused run
+    of the same frames on a second one; returns the kernels' launches
+    of the frame loop."""
+    errors = _ErrorLog()
+    logging.getLogger("pyqmd_tpu_torch").addHandler(errors)
+    sim = Simulation(z=z, n=n, ensemble=SLICE_B, pad_to=pad_to, seed=0, device=DEV)
+    sim.set_preset("billion")
+    sim.nan_check_interval = 3  # the guard reads its flag three times in this run
+    sim.frame()  # warm-up frame
+    torch.cuda.synchronize()
+    small = sim.cfg.max_particles <= SMALL_MAX_PARTICLES
+
+    # The bare frame loop on an ensemble of its own, before the Simulation's
+    # frames and again after the fused run, so all three are timed in turns.
+    bare_fn = make_frame_fn(sim.cfg, 20, batched=True)
+    bare = ensemble_init(sim.cfg, SLICE_B, seed=1, device=DEV)
+
+    def bare_ms_per_frame() -> float:
+        nonlocal bare
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SIM_FRAMES):
+            bare, _ = bare_fn(bare, TIME_SCALE, FRAME_DT)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SIM_FRAMES * 1e3
+
+    bare_ms = [bare_ms_per_frame()]
+
+    force_step.launches = force_step.small_launches = 0
+    overlap_step.launches = 0
+    per_frame = []
+    t0 = time.perf_counter()
+    for _ in range(SIM_FRAMES):
+        before = (force_step.launches, overlap_step.launches)
+        sim.frame()
+        per_frame.append((force_step.launches - before[0], overlap_step.launches - before[1]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"force_step": force_step.launches, "force_step_small": force_step.small_launches,
+                "overlap_step": overlap_step.launches}
+    steps = sim.substeps_used
+    assert steps == 20, steps
+    assert per_frame == [(steps, 1)] * SIM_FRAMES, per_frame
+    assert launches["force_step_small"] == (launches["force_step"] if small else 0), launches
+    assert len(sim._inflight) == 3 and all(f.event.query() for f in sim._inflight)
+
+    status = sim.status()
+    st = sim.state
+    assert status["alive"] == int(st.alive.sum()), status
+    assert status["decay_counts"] == st.decay_counts.sum(0).tolist(), status
+    assert status["ensemble"] == SLICE_B and status["substeps"] == steps
+    assert status["fps"] > 0 and status["substeps_per_sec"] > 0, status
+    assert not errors.messages, errors.messages
+    assert bool(torch.isfinite(st.pos).all()) and st.pos.shape == (SLICE_B, sim.cfg.max_particles, 2)
+    if z > 2:
+        assert sum(status["decay_counts"]) > 0, "no decay fired"
+    else:
+        assert sum(status["decay_counts"]) == 0, "a stable nucleus decayed"
+
+    # Nothing on the frame path waits for the card: with PyTorch's
+    # synchronisation check set to raise, three frames (fewer than the queue
+    # holds, so none is fenced), a fused run and two rasterized frames go
+    # through; status() then makes one synchronising call, its packed readback.
+    probe = Simulation(z=z, n=n, ensemble=SLICE_B, pad_to=pad_to, seed=2, device=DEV)
+    probe.set_preset("billion")
+    probe.nan_check_interval = 0
+    # The first picture on a device copies the colour and label tables there.
+    render_frame(probe.state, (400.0, 400.0), 15.0, 160, 120)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            probe.frame()
+        probe.run(2, fused=True)
+        render_frame(probe.state, (400.0, 400.0), 15.0, 160, 120, index=3)
+        probe.render_fit_device(160, 120, index=3)
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            probe.status()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    status_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    assert status_syncs == 1, [str(w.message) for w in caught]
+    del probe
+
+    fused = Simulation(z=z, n=n, ensemble=SLICE_B, pad_to=pad_to, seed=0, device=DEV)
+    fused.set_preset("billion")
+    force_step.launches = force_step.small_launches = 0
+    overlap_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = fused.run(SIM_FRAMES + 1, fused=True)
+    torch.cuda.synchronize()
+    fused_wall = time.perf_counter() - t0
+    assert force_step.launches == (SIM_FRAMES + 1) * steps, force_step.launches
+    assert overlap_step.launches == SIM_FRAMES + 1, overlap_step.launches
+    for f in dataclasses.fields(st):
+        assert torch.equal(getattr(fused.state, f.name), getattr(st, f.name)), (
+            f"fused run differs from the frame loop in {f.name}")
+    assert int(metrics["total_alive"]) == status["alive"]
+    assert fused.frame_count == sim.frame_count == SIM_FRAMES + 1
+    logging.getLogger("pyqmd_tpu_torch").removeHandler(errors)
+    bare_ms.append(bare_ms_per_frame())
+    emit({"phase": "sim_ensemble", "isotope": sim.isotope, "B": SLICE_B,
+          "P": sim.cfg.max_particles, "frames": SIM_FRAMES, "substeps_per_frame": steps,
+          "launches": launches, "bare_make_frame_fn_ms_per_frame_before_and_after": bare_ms,
+          "frame_loop_wall_s": wall,
+          "frame_loop_ms_per_frame": wall / SIM_FRAMES * 1e3,
+          "frame_loop_nucleus_substeps_per_s": SLICE_B * steps * SIM_FRAMES / wall,
+          "fused_frames": SIM_FRAMES + 1, "fused_wall_s": fused_wall,
+          "fused_ms_per_frame": fused_wall / (SIM_FRAMES + 1) * 1e3,
+          "fused_nucleus_substeps_per_s": SLICE_B * steps * (SIM_FRAMES + 1) / fused_wall,
+          "fused_bitwise_equal": True, "status_fps": status["fps"],
+          "status_substeps_per_sec": status["substeps_per_sec"],
+          "status_alive": status["alive"], "status_decay_counts": status["decay_counts"],
+          "nan_guard_checks": sim.frame_count // sim.nan_check_interval,
+          "synchronising_calls_in_3_frames_a_fused_run_and_2_renders": 0,
+          "synchronising_calls_in_status": status_syncs, "card": smi})
+    return launches
+
+
+def phase_sim_single(smi: str) -> None:
+    """One U-238 nucleus through ``Simulation`` on the CPU and on the card,
+    frame by frame."""
+    frames = 40
+    cpu = Simulation(z=92, n=146, seed=0, pad_to=128, device="cpu")
+    card = Simulation(z=92, n=146, seed=0, pad_to=128, device=DEV)
+    first_out, worst_in = None, 0.0
+    force_step.launches = 0
+    for s in (cpu, card):
+        s.set_preset("billion")
+    for f in range(frames):
+        cpu.frame()
+        card.frame()
+        d = max(float((card.state.pos.cpu() - cpu.state.pos).abs().max()),
+                float((card.state.vel.cpu() - cpu.state.vel).abs().max()))
+        if first_out is None:
+            if d <= 1e-3:
+                worst_in = max(worst_in, d)
+            else:
+                first_out = f + 1
+    assert first_out is None or first_out > 1, "the first frame already differs"
+    assert force_step.launches == frames * 20, force_step.launches
+    for s in (cpu, card):
+        s.force_decay()
+    a, c = state_to_numpy(cpu.state), state_to_numpy(card.state)
+    for f in INT_FIELDS:
+        np.testing.assert_array_equal(c[f], a[f], err_msg=f)
+    decay_log = card.decay_log
+    assert decay_log == cpu.decay_log and len(decay_log) >= 1, decay_log
+    sc, sk = cpu.status(), card.status()
+    for k in ("isotope", "z", "n", "alive", "ejecta", "decay_counts", "time_passed", "substeps"):
+        assert sk[k] == sc[k], (k, sk[k], sc[k])
+    assert sk["backend"] == "cuda" and sc["backend"] == "cpu"
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        card.frame()
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 100.0
+    emit({"phase": "sim_single", "isotope": "U-238", "frames": frames,
+          "int_fields_rng_and_log_equal": True, "decay_log": decay_log,
+          "pos_vel_within_1e-3_frames": frames if first_out is None else first_out - 1,
+          "first_frame_outside_1e-3": first_out, "max_abs_diff_while_within": worst_in,
+          "card_ms_per_frame": frame_ms, "card_fps_status": card.status()["fps"], "card": smi})
+
+
+def _png_size(path: Path) -> tuple[int, int]:
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR", path
+    return struct.unpack(">II", data[16:24])
+
+
+def _gif_frames(data: bytes) -> tuple[tuple[int, int], int]:
+    """Walk a GIF's blocks; returns its (width, height) and image count."""
+    assert data[:6] == b"GIF89a", "not a GIF"
+    size = struct.unpack("<HH", data[6:10])
+    i = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+
+    def skip_sub_blocks(i: int) -> int:
+        while data[i]:
+            i += 1 + data[i]
+        return i + 1
+
+    images = 0
+    while data[i] != 0x3B:
+        if data[i] == 0x21:  # extension: label, then sub-blocks
+            i = skip_sub_blocks(i + 2)
+        else:
+            assert data[i] == 0x2C, f"unknown GIF block {data[i]:#x} at {i}"
+            flags = data[i + 9]
+            i += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            i = skip_sub_blocks(i + 1)  # LZW minimum code size, then the data
+            images += 1
+    assert i == len(data) - 1, "bytes after the GIF trailer"
+    return size, images
+
+
+def _cli(args: list) -> str:
+    """``cli.main(args)`` with its standard output captured; it must return 0."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    assert rc == 0, (args, rc)
+    return out.getvalue()
+
+
+def phase_cli(smi: str) -> None:
+    """The command line's modes in process, on the card (its default)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ck, png, gif = tmp / "run.npz", tmp / "out.png", tmp / "chain.gif"
+        t0 = time.perf_counter()
+        out = _cli(["--isotope", "U-238", "--ensemble", str(SLICE_B), "--frames", "10",
+                    "--time-scale", "1e9yr", "--render", str(png), "--save", str(ck),
+                    "--status-json", "-q"])
+        run_s = time.perf_counter() - t0
+        status = json.loads(out.strip().splitlines()[-1])
+        assert status["ensemble"] == SLICE_B and status["isotope"] == f"U-238 x{SLICE_B}", status
+        assert status["substeps"] == 20 and status["fps"] > 0, status
+        assert _png_size(png) == (480, 480)  # the 4x4 montage of 120-pixel tiles
+        state, cfg = load_checkpoint(str(ck))
+        assert state.batch == SLICE_B and state.pos.is_cuda and cfg.max_particles == 256
+        assert int(state.alive.sum()) == status["alive"]
+
+        out = _cli(["--load", str(ck), "--frames", "2", "--time-scale", "1e9yr", "--status-json",
+                    "-q"])
+        resumed = json.loads(out.strip().splitlines()[-1])
+        assert resumed["ensemble"] == SLICE_B and resumed["alive"] <= status["alive"], resumed
+
+        t0 = time.perf_counter()
+        _cli(["--isotope", "U-238", "--frames", "20", "--time-scale", "1e11yr", "--render",
+              str(gif), "--render-every", "5", "-q"])
+        gif_s = time.perf_counter() - t0
+        data = gif.read_bytes()
+        assert _gif_frames(data) == ((800, 600), 4), _gif_frames(data)
+        still = tmp / "still.png"
+        _cli(["--isotope", "U-238", "--frames", "3", "--render", str(still), "-q"])
+        assert _png_size(still) == (800, 600)
+
+        csv = tmp / "c14.csv"
+        t0 = time.perf_counter()
+        out = _cli(["--isotope", "C-14", "--ensemble", str(C14_B), "--survival", str(csv), "-q"])
+        survival_s = time.perf_counter() - t0
+        fit = json.loads(out.strip().splitlines()[-1])
+        assert fit["rel_error"] < 0.01, fit
+        rows = csv.read_text().strip().splitlines()
+        assert rows[0] == "time_s,survival,activity_per_s" and len(rows) == 22
+
+        pops, theory = tmp / "pops.csv", tmp / "theory.csv"
+        _cli(["--isotope", "U-238", "--ensemble", str(U238_CHAIN_B), "--populations", str(pops),
+              "--theory", str(theory), "--frames", "30", "--half-lives", "3", "-q"])
+        head = pops.read_text().splitlines()[0].split(",")
+        last = dict(zip(head, pops.read_text().strip().splitlines()[-1].split(",")))
+        assert sum(int(v) for k, v in last.items() if k != "time_s") == U238_CHAIN_B
+        th = theory.read_text().strip().splitlines()
+        assert len(th) == 32 and abs(sum(float(x) for x in th[-1].split(",")[1:]) - 1.0) < 1e-6
+        assert "U-238" in _cli(["--list-isotopes"])
+    emit({"phase": "cli", "ensemble_run_s": run_s, "ensemble_status": status,
+          "resumed_alive": resumed["alive"], "gif_run_s": gif_s, "gif_bytes": len(data),
+          "survival_run_s": survival_s, "survival_fit": fit,
+          "u238_final_populations": {k: int(v) for k, v in last.items()
+                                     if k != "time_s" and int(v)}, "card": smi})
+
+
+def phase_rasterizer(smi: str) -> None:
+    """The same evolved state drawn on the card and on the CPU."""
+    sim = Simulation(z=92, n=146, seed=0, pad_to=128, device=DEV)
+    sim.set_time_scale(3.15576e18)  # 1e11 years per second: the chain runs down
+    for _ in range(5):
+        sim.frame()
+    for _ in range(3):
+        sim.force_decay()  # fresh ejecta
+    state = sim.state
+    live = int(state.ej_alive.sum())
+    assert live > 0, "no live ejecta to draw"
+    cpu_state = state.to("cpu")
+    out = {"phase": "rasterizer", "isotope": sim.isotope, "live_ejecta": live, "card": smi}
+    for (w, h), zoom in (((800, 600), 15.0), ((160, 120), 15.0)):
+        card = render_to_host(state, (400.0, 400.0), zoom, w, h)
+        cpu = render_to_host(cpu_state, (400.0, 400.0), zoom, w, h)
+        assert card.shape == (h, w, 3) and (card.sum(-1) > 0).sum() > 50
+        diff = int((card != cpu).any(-1).sum())
+        assert diff <= PIXEL_DIFF_LIMIT * w * h, (w, h, diff)
+        draw = lambda: render_frame(state, (400.0, 400.0), zoom, w, h)  # noqa: E731
+        ms = device_ms(draw, DEV, 20)  # 20 frames back to back: the host's launch pace
+        alone_ms = device_ms(draw, DEV, 1)  # one frame queued behind the spin: the card's time
+        t0 = time.perf_counter()
+        for _ in range(5):
+            render_to_host(state, (400.0, 400.0), zoom, w, h)
+        out[f"{w}x{h}"] = {"differing_pixels": diff, "pixels": w * h,
+                           "card_ms_host_paced": ms, "card_ms_device": alone_ms,
+                           "card_to_host_wall_ms": (time.perf_counter() - t0) * 200.0,
+                           "drawn_pixels": int((card.sum(-1) > 0).sum())}
+    fit = sim.render_fit_device(160, 120)
+    assert fit.is_cuda and (fit.cpu().numpy() == sim._render_fit(160, 120)).mean() > 0.995
+    t0 = time.perf_counter()
+    panels = sim.render(800, 600)
+    out["render_with_panels_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    assert panels.shape == (600, 800, 3)
+    emit(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device_and_build()
-    phase_force_kernel()
-    phase_overlap_kernel()
-    kernels = phase_slice(smi)
-    kernels.insert(1, phase_he4_slice(smi))
-    phase_cpu_vs_card()
-    worst = phase_decay_kernel()
-    kernels.append(phase_stats_slice(smi, worst))
-    phase_stats_cpu_vs_card()
+    clock = [time.perf_counter()]
+
+    def timed(name: str, fn, *args):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        emit({"phase_seconds": name, "seconds": round(now - clock[0], 3)})
+        clock[0] = now
+        return out
+
+    smi = timed("1 device and build", phase_device_and_build)
+    timed("2 force kernels", phase_force_kernel)
+    timed("3 overlap kernel", phase_overlap_kernel)
+    kernels = timed("4 U-238 slice", phase_slice, smi)
+    kernels.insert(1, timed("4 He-4 slice", phase_he4_slice, smi))
+    timed("5 CPU vs card", phase_cpu_vs_card)
+    worst = timed("6 decay kernel", phase_decay_kernel)
+    kernels.append(timed("7 statistics slice", phase_stats_slice, smi, worst))
+    timed("8 statistics CPU vs card", phase_stats_cpu_vs_card)
+    u238 = timed("9 Simulation U-238 ensemble", phase_sim_ensemble, smi, 92, 146, 128)
+    he4 = timed("9 Simulation He-4 ensemble", phase_sim_ensemble, smi, 2, 2, 8)
+    timed("10 Simulation single nucleus", phase_sim_single, smi)
+    decay_stats_frame.launches = 0
+    timed("11 command line", phase_cli, smi)
+    cli_decay_launches = decay_stats_frame.launches
+    timed("12 rasterizer", phase_rasterizer, smi)
+    by_name = {k["name"]: k for k in kernels}
+    by_name["force"]["sim_launches"] = u238["force_step"]
+    by_name["overlap"]["sim_launches"] = u238["overlap_step"] + he4["overlap_step"]
+    by_name["force_small"]["sim_launches"] = he4["force_step_small"]
+    by_name["decay_stats"]["sim_launches"] = cli_decay_launches  # --survival, --populations
+    assert all(k["launches"] > 0 and k["sim_launches"] > 0 for k in kernels), kernels
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

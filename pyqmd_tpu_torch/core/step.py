@@ -163,6 +163,32 @@ def _batched_frame_preamble(
     return states, dyn, k3, step_keys
 
 
+def _frame_body(
+    states: NucleusState,
+    cfg: SimConfig,
+    time_scale,
+    frame_dt,
+    num_steps: int,
+    physics_dt=None,
+    raw_physics_dt=None,
+) -> NucleusState:
+    """The full-physics frame without its metrics: clock, key tree,
+    ``num_steps`` substeps and the overlap projection."""
+    states, dyn, k3, step_keys = _batched_frame_preamble(
+        states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
+    )
+    for s in range(num_steps):
+        states = advance_ejecta(states, cfg, dyn)
+        states, _ = maybe_decay(states, cfg, step_keys[s], dyn)
+        pos, vel = force_step(
+            states.pos, states.vel, states.ptype, states.alive, dyn.physics_dt, cfg
+        )
+        states = states.replace(pos=pos, vel=vel)
+
+    pos = _batched_overlap(states.pos, states.alive, k3[:, 1], cfg)
+    return states.replace(pos=pos, rng=k3[:, 2].contiguous())
+
+
 def ensemble_step(
     states: NucleusState,
     cfg: SimConfig,
@@ -177,20 +203,9 @@ def ensemble_step(
     Per-nucleus metrics keep their batch axis; the aggregate decay
     statistics are summed on the device.
     """
-    states, dyn, k3, step_keys = _batched_frame_preamble(
+    states = _frame_body(
         states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
     )
-    for s in range(num_steps):
-        states = advance_ejecta(states, cfg, dyn)
-        states, _ = maybe_decay(states, cfg, step_keys[s], dyn)
-        pos, vel = force_step(
-            states.pos, states.vel, states.ptype, states.alive, dyn.physics_dt, cfg
-        )
-        states = states.replace(pos=pos, vel=vel)
-
-    pos = _batched_overlap(states.pos, states.alive, k3[:, 1], cfg)
-    states = states.replace(pos=pos, rng=k3[:, 2].contiguous())
-
     return states, _ensemble_metrics(states)
 
 
@@ -252,10 +267,10 @@ def simulate_frame(
     :func:`ensemble_step`, with per-nucleus metrics only."""
     if state.batch != 1:
         raise ValueError(f"simulate_frame takes a batch of 1, got {state.batch}")
-    state, metrics = ensemble_step(
+    state = _frame_body(
         state, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
     )
-    return state, {k: metrics[k] for k in METRIC_KEYS}
+    return state, state_metrics(state)
 
 
 def make_frame_fn(cfg: SimConfig, num_steps: int, batched: bool = False):
@@ -270,3 +285,26 @@ def make_frame_fn(cfg: SimConfig, num_steps: int, batched: bool = False):
                   raw_physics_dt)
 
     return frame
+
+
+def make_run_fn(cfg: SimConfig, num_steps: int, num_frames: int, batched: bool = False):
+    """Fused run for a (config, substep-count, frame-count) bucket:
+    ``num_frames`` whole frames dispatched back to back with no host
+    synchronisation between them, at a constant time scale.
+
+    Returns ``(state, metrics)`` with the metrics of the final state only:
+    the frames in between run without theirs. The clock advances per
+    frame, and the chain-log ring in the state keeps every event for the
+    host to drain afterwards.
+    """
+
+    def run(state, time_scale, frame_dt, physics_dt=cfg.effective_dt(),
+            raw_physics_dt=cfg.physics_dt):
+        if not batched and state.batch != 1:
+            raise ValueError(f"a single-nucleus run takes a batch of 1, got {state.batch}")
+        for _ in range(num_frames):
+            state = _frame_body(state, cfg, time_scale, frame_dt, num_steps,
+                                physics_dt, raw_physics_dt)
+        return state, _ensemble_metrics(state) if batched else state_metrics(state)
+
+    return run

@@ -82,7 +82,9 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` of the 32-bit integer ``data``."""
-    counters = torch.tensor([data & _MASK], dtype=torch.int64, device=keys.device)
+    # A fill on the device: a tensor built from a Python list would be a
+    # host-to-device copy that waits for the stream, once per frame.
+    counters = torch.full((1,), data & _MASK, dtype=torch.int64, device=keys.device)
     b1, b2 = _hash_counters(keys, counters)
     return torch.stack([b1[..., 0], b2[..., 0]], dim=-1)
 

@@ -67,6 +67,19 @@ BASE_LIFETIMES = np.array([np.inf, np.inf, 2.0, 3.0, 1.0, 3.0], dtype=np.float32
 # Post-decay ejecta speed by particle type (nuclear_sim.py:296-313).
 EJECTA_SPEEDS = np.array([40.0, 40.0, 30.0, 50.0, 60.0, 50.0], dtype=np.float32)
 
+# Particle colors by type (particles.py:41-50).
+PARTICLE_COLORS = np.array(
+    [
+        [255, 100, 100],  # proton
+        [100, 100, 255],  # neutron
+        [255, 200, 0],  # alpha
+        [0, 255, 255],  # electron
+        [0, 255, 0],  # gamma
+        [255, 0, 255],  # positron
+    ],
+    dtype=np.uint8,
+)
+
 _U32 = 0xFFFFFFFF
 
 

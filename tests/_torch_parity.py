@@ -58,3 +58,14 @@ def assert_rel_close(a, b, rtol, name=""):
         rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-30)
     rel[both_inf] = 0.0
     assert float(rel.max(initial=0.0)) <= rtol, (name, float(rel.max()))
+
+
+def batch_of_one(arrays: dict) -> dict:
+    """A lone JAX nucleus's ``{field: ndarray}`` with the batch axis the
+    port carries."""
+    return {k: np.asarray(v)[None] for k, v in arrays.items()}
+
+
+def to_port_single(st):
+    """A lone (unbatched) JAX state as the port's batch of one on the CPU."""
+    return state_from_numpy(batch_of_one(jax_to_numpy(st)), device="cpu")

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (caps torch threads)
-from pyqmd_tpu_torch import prng
+from pyqmd_tpu_torch import Simulation, cli, load_checkpoint, prng
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import decay, forces, overlap
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
@@ -25,6 +25,9 @@ from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
+from pyqmd_tpu_torch.render import render_to_host
+from pyqmd_tpu_torch.state import state_to_numpy
+from pyqmd_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -310,3 +313,119 @@ def test_decay_frame_wrapper_rejects_what_the_kernel_does_not_take(dev):
         decay_stats_frame(st, (bits[0], bits[1][:8]), rng, cfg, dyn, 10)
     with pytest.raises(ValueError):
         decay_stats_frame(st, bits, rng, cfg, dyn, -1)
+
+
+# --- the host loop, checkpoints, the command line and the rasterizer ----------
+
+
+def test_fence_waits_for_an_event_on_the_card(dev):
+    x = torch.ones(1 << 20, device=dev)
+    torch.cuda._sleep(50_000_000)
+    y = x * 2
+    event = torch.cuda.Event()
+    event.record()
+    profiling.fence(event)
+    assert event.query()
+    profiling.fence({"y": y, "n": 3})
+    timer = profiling.StepTimer()
+    timer.start()
+    assert timer.lap(y, steps=2) > 0
+
+
+def test_frames_in_flight_on_the_card(dev):
+    sim = Simulation(z=6, n=8, pad_to=8, ensemble=64, device=dev)
+    sim.set_preset("billion")
+    small = force_step.small_launches
+    for _ in range(8):
+        sim.frame()
+    assert force_step.small_launches - small == 8 * 20
+    assert len(sim._inflight) == 3 and all(f.event is not None for f in sim._inflight)
+    assert sim._nan_slots.is_pinned() and sim.fps > 0
+    status = sim.status()
+    assert status["alive"] == int(sim.state.alive.sum())
+    assert status["decay_counts"] == sim.state.decay_counts.sum(0).tolist()
+
+
+def test_nan_guard_on_the_card(dev, caplog):
+    sim = Simulation(z=2, n=2, pad_to=8, device=dev)
+    sim.nan_check_interval = 2
+    pos = sim.state.pos.clone()
+    pos[0, 0, 0] = float("nan")
+    sim.state = sim.state.replace(pos=pos)
+    with caplog.at_level("ERROR", logger="pyqmd_tpu_torch"):
+        sim.frame()
+        sim.frame()
+    assert "non-finite state detected" in caplog.text
+
+
+@pytest.mark.parametrize("zn,pad_to,ensemble", [((6, 8), 8, None), ((92, 146), 128, None),
+                                                ((6, 8), 8, 32)])
+def test_simulation_on_the_card_equals_the_cpu(dev, zn, pad_to, ensemble):
+    """Same seed through ``Simulation`` on both devices: frames, a fused
+    run and (single) a forced decay; integer fields, rng, status and the
+    decay log equal, pos/vel within 1e-3 on the first frame."""
+    sims = [Simulation(z=zn[0], n=zn[1], seed=4, pad_to=pad_to, ensemble=ensemble, device=d)
+            for d in ("cpu", dev)]
+    for s in sims:
+        s.set_time_scale(3.15576e18 if zn[0] > 6 else 3.15576e12)
+        s.frame()
+    a, c = (state_to_numpy(s.state) for s in sims)
+    np.testing.assert_allclose(c["pos"], a["pos"], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(c["vel"], a["vel"], rtol=1e-3, atol=1e-3)
+    for s in sims:
+        s.frame()
+        s.run(3, fused=True)
+        if not ensemble:
+            s.force_decay()
+    a, c = (state_to_numpy(s.state) for s in sims)
+    for f in ("z", "n", "decay_counts", "chain_z0", "chain_n0", "chain_dtype", "chain_z1",
+              "chain_n1", "chain_cursor", "rng", "alive", "ptype", "ej_type", "ej_alive",
+              "ej_cursor"):
+        np.testing.assert_array_equal(c[f], a[f], err_msg=f)
+    sa, sc = (s.status() for s in sims)
+    for k in ("isotope", "alive", "decay_counts", "substeps"):
+        assert sc[k] == sa[k], k
+    if not ensemble:
+        assert sims[1].decay_log == sims[0].decay_log and sims[1].decay_log
+        assert sc["backend"] == "cuda" and sa["backend"] == "cpu"
+
+
+def test_checkpoint_crosses_devices(dev, tmp_path):
+    sim = Simulation(z=6, n=8, seed=1, pad_to=8, ensemble=16, device=dev)
+    sim.frame()
+    path = str(tmp_path / "ck.npz")
+    sim.save(path)
+    on_card, cfg = load_checkpoint(path)  # the default device is the card
+    on_cpu, _ = load_checkpoint(path, device="cpu")
+    assert on_card.pos.is_cuda and cfg == sim.cfg
+    want = state_to_numpy(sim.state)
+    for got in (state_to_numpy(on_card), state_to_numpy(on_cpu)):
+        for f, v in want.items():
+            np.testing.assert_array_equal(got[f], v, err_msg=f)
+    resumed = Simulation.load(path)
+    resumed.frame()
+    assert resumed.state.pos.is_cuda and resumed.ensemble == 16
+
+
+def test_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
+    png = tmp_path / "o.png"
+    before = force_step.launches
+    assert cli.main(["--isotope", "C-14", "--frames", "3", "--time-scale", "1e9yr", "-q",
+                     "--status-json", "--render", str(png), "--width", "160",
+                     "--height", "120"]) == 0
+    assert force_step.launches - before == 3 * 20
+    out = capsys.readouterr().out
+    assert '"backend": "cuda"' in out and png.read_bytes()[:4] == b"\x89PNG"
+
+
+@pytest.mark.parametrize("size,zoom", [((320, 240), 15.0), ((160, 120), 4.0), ((64, 48), 100.0)])
+def test_the_card_renders_what_the_cpu_renders(dev, size, zoom):
+    sim = Simulation(z=92, n=146, pad_to=128, seed=0, device="cpu")
+    for _ in range(3):
+        sim.force_decay()
+    cpu = render_to_host(sim.state, (400.0, 400.0), zoom, *size)
+    card = render_to_host(sim.state.to(dev), (400.0, 400.0), zoom, *size)
+    assert (cpu != card).any(-1).mean() <= 1e-3
+    fit = sim.render_fit_device(64, 44)
+    sim.state = sim.state.to(dev)
+    assert (sim.render_fit_device(64, 44).cpu() == fit).float().mean() > 0.995

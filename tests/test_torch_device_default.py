@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (caps torch threads)
-from pyqmd_tpu_torch import analysis, frame_profile, prng
+from pyqmd_tpu_torch import Simulation, analysis, cli, frame_profile, load_checkpoint, prng
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import init
 from pyqmd_tpu_torch.state import empty_state, state_from_numpy, state_to_numpy
@@ -34,7 +34,44 @@ CALLS = {
     "chain_populations": lambda **kw: analysis.chain_populations(6, 8, batch=16, frames=1, **kw),
     "frame_breakdown": lambda **kw: frame_profile.frame_breakdown(
         6, 8, batch=16, frames=20, half_lives=2.0, substeps=1, **kw),
+    "Simulation": lambda **kw: Simulation(z=6, n=8, pad_to=8, **kw).state.pos,
+    "Simulation_ensemble": lambda **kw: Simulation(z=6, n=8, pad_to=8, ensemble=3, **kw).state.pos,
 }
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("ck") / "c14.npz")
+    Simulation(z=6, n=8, pad_to=8, device="cpu").save(path)
+    return path
+
+
+@pytest.mark.parametrize("name", ["Simulation.load", "load_checkpoint"])
+def test_loading_defaults_to_the_card(name, checkpoint):
+    call = {"Simulation.load": lambda **kw: Simulation.load(checkpoint, **kw).state.pos,
+            "load_checkpoint": lambda **kw: load_checkpoint(checkpoint, **kw)[0].pos}[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+    assert call(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("mode", ["run", "load", "survival", "populations"])
+def test_cli_main_defaults_to_the_card(mode, checkpoint, tmp_path, capsys):
+    args = {"run": ["--isotope", "He-4", "--frames", "1"],
+            "load": ["--load", checkpoint, "--frames", "1"],
+            "survival": ["--isotope", "C-14", "--ensemble", "8", "--frames", "1",
+                         "--survival", str(tmp_path / "s.csv")],
+            "populations": ["--isotope", "C-14", "--ensemble", "8", "--frames", "1",
+                            "--populations", str(tmp_path / "p.csv")]}[mode] + ["-q"]
+    if torch.cuda.is_available():
+        assert cli.main(args) == 0
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            cli.main(args)
+    assert cli.main(args + ["--device", "cpu"]) == 0
 
 
 def _device_of(out) -> str | None:

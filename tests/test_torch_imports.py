@@ -47,6 +47,29 @@ _PROBE = textwrap.dedent(
     assert decay_stats_substep.launches == 0 and decay_stats_frame.launches == 0
     assert force_step.small_launches == 0
     assert _build.library.cache_info().currsize == 0
+
+    # The Simulation class, the CLI, checkpoints and the still renderer, on the CPU.
+    import os, tempfile
+    from pyqmd_tpu_torch import Simulation, cli, load_checkpoint, render_frame
+    for needed in ("sim", "cli", "__main__", "utils.checkpoint", "utils.format", "utils.profiling",
+                   "data.elements", "render.framebuffer", "render.panels", "render.font",
+                   "render.png", "render.gif", "render.ansi"):
+        assert "pyqmd_tpu_torch." + needed in names, needed
+    for later in ("render.interactive", "render.httpview", "parallel"):
+        assert "pyqmd_tpu_torch." + later not in names, later
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, png = os.path.join(tmp, "c.npz"), os.path.join(tmp, "c.png")
+        assert cli.main(["--device", "cpu", "--isotope", "C-14", "--frames", "2", "-q", "--save", ck,
+                         "--render", png, "--width", "64", "--height", "48"]) == 0
+        sim = Simulation.load(ck, device="cpu")
+        sim.run(2, fused=True)
+        assert load_checkpoint(ck, device="cpu")[0].batch == 1
+        assert render_frame(sim.state, (400.0, 400.0), 5.0, 32, 24).shape == (24, 32, 3)
+    assert "pyqmd_tpu" not in sys.modules and "triton" not in sys.modules
+    assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules
+                   if sys.modules[m] is not None)
+    assert force_step.launches == 0 and overlap_step.launches == 0
+    assert _build.library.cache_info().currsize == 0
     print("MODULES", len(names))
     """
 )
@@ -58,4 +81,5 @@ def test_port_imports_without_jax_and_builds_nothing():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split("MODULES")[1])
-    assert n_modules >= 19  # config, state, prng, analysis, data/*, core/*, kernels/*
+    # config, state, prng, analysis, data/*, core/*, kernels/*, sim, cli, utils/*, render/*
+    assert n_modules >= 35
