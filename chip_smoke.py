@@ -69,7 +69,34 @@ nonzero, and nothing catches it:
 12. the rasterizer, CPU against card, on an evolved U-238 state with live
     ejecta at 800x600 (zoom 15) and 160x120: differing pixels (at most
     0.1% of the frame) and the card's time per frame, at the host's launch
-    pace and for one frame queued behind a spin kernel.
+    pace and for one frame queued behind a spin kernel;
+13. packed frames: ``render_frame_packed`` on the card and ``unpack_frame``
+    on the host, on phase 12's evolved U-238 state and on a He-4 nucleus
+    at 800x600: the flag set, the unpacked frame bitwise ``render_frame``'s,
+    the packed array against the CPU port's (at most 0.1% of its bytes),
+    ``ValueError`` at width 40; its card time beside ``render_frame``'s;
+14. the pipelined frame reader on one U-238 nucleus at ``billion``: 20
+    frames of ``frame()`` + draw + ``submit`` at depth 3, with the 64x44
+    RGB frame of the ``watch`` loop and with the 800x600 packed frame, the
+    draw and the ``submit`` under PyTorch's synchronisation check: None for
+    the first 3, 17 frames handed out and 3 flushed, in order, each bitwise
+    the blocking readback of its device frame; 4 pinned buffers, allocated
+    once; ms per delivered frame beside depth 1 and a blocking
+    ``.cpu().numpy()`` per frame; a CPU tensor takes no pinned buffer;
+15. the browser viewer on the card: ``LiveViewServer`` on one U-238 nucleus
+    (fps 30, 800x600) through ``urllib``: the page, three ``/frame`` PNGs,
+    strict-JSON ``/status``, controls (faster, decay, a bad action 400, a
+    bad path 404), two ``/stream`` readers at once that see one sequence
+    while the simulation advances by the frames made and the force and
+    overlap kernels are launched 20 times and once per frame; the server
+    closes and its thread ends; a He-4 viewer (the sub-warp kernel) and a
+    viewer on 10240 U-238 nuclei (``decay`` answers 400);
+16. the live views from the command line, in process: the REPL's ``watch``
+    and ``--serve`` with one ``/frame`` fetched; then every script of
+    ``examples_torch/`` on its default device (the card), four as
+    subprocesses all at once and ``survival_curve.py`` in process, where its
+    decay-kernel launches are read; the C-14 fit within 1%, and the orders
+    of Euler and leapfrog from the sub-warp force kernel.
 
 A kernel's bound is the least time the card could take for the same work,
 from this run's inputs: the larger of the bytes it must move (each input
@@ -83,7 +110,7 @@ package's cost model, ``forces_pallas.py:474, 485``); a threefry2x32 hash
 
 Every phase prints its seconds. The line before the last is the kernels'
 JSON summary (``launches`` from phases 4 and 7, ``sim_launches`` from
-phase 9); the last line is
+phase 9, ``view_launches`` from phases 15 and 16); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 and prints no result.
 """
@@ -92,15 +119,21 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import logging
 import math
+import os
+import runpy
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
 from pathlib import Path
 
@@ -129,7 +162,14 @@ from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import SMALL_MAX_PARTICLES, force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
-from pyqmd_tpu_torch.render import render_frame, render_to_host
+from pyqmd_tpu_torch.render import (
+    PipelinedFrameReader,
+    render_frame,
+    render_frame_packed,
+    render_to_host,
+    unpack_frame,
+)
+from pyqmd_tpu_torch.render.httpview import LiveViewServer
 from pyqmd_tpu_torch.state import DECAY_ALPHA, DECAY_BETA_MINUS, DECAY_BETA_PLUS, PROTON
 from pyqmd_tpu_torch.state import DECAY_NEUTRON_EMISSION, DECAY_PROTON_EMISSION
 from pyqmd_tpu_torch.state import state_to_numpy
@@ -154,6 +194,10 @@ C14_B = 2_097_152  # the README's 2M-nucleus C-14 statistics
 U238_CHAIN_B = 65_536
 SIM_FRAMES = 8  # after the warm-up frame: enough to retire frames from the 4-deep queue
 PIXEL_DIFF_LIMIT = 1e-3  # share of a frame's pixels the card may draw unlike the CPU
+READER_FRAMES, READER_DEPTH = 20, 3
+HTTP_TIMEOUT = 120  # seconds, on every request
+STREAM_SECONDS = 2.0
+REPO = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA's data sheet and Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
@@ -254,7 +298,8 @@ def phase_device_and_build() -> str:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}", flush=True)
-    emit({"phase": "build", "seconds": round(build_s, 3), "library": path.name})
+    emit({"phase": "build", "seconds": round(build_s, 3), "library": path.name,
+          "visible_devices": torch.cuda.device_count()})
     return smi
 
 
@@ -1035,10 +1080,13 @@ def phase_sim_single(smi: str) -> None:
           "card_ms_per_frame": frame_ms, "card_fps_status": card.status()["fps"], "card": smi})
 
 
-def _png_size(path: Path) -> tuple[int, int]:
-    data = path.read_bytes()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR", path
+def _png_dimensions(data: bytes) -> tuple[int, int]:
+    assert data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR", data[:16]
     return struct.unpack(">II", data[16:24])
+
+
+def _png_size(path: Path) -> tuple[int, int]:
+    return _png_dimensions(path.read_bytes())
 
 
 def _gif_frames(data: bytes) -> tuple[tuple[int, int], int]:
@@ -1133,8 +1181,9 @@ def phase_cli(smi: str) -> None:
                                      if k != "time_s" and int(v)}, "card": smi})
 
 
-def phase_rasterizer(smi: str) -> None:
-    """The same evolved state drawn on the card and on the CPU."""
+def phase_rasterizer(smi: str):
+    """The same evolved state drawn on the card and on the CPU; returns
+    that state."""
     sim = Simulation(z=92, n=146, seed=0, pad_to=128, device=DEV)
     sim.set_time_scale(3.15576e18)  # 1e11 years per second: the chain runs down
     for _ in range(5):
@@ -1169,6 +1218,403 @@ def phase_rasterizer(smi: str) -> None:
     out["render_with_panels_wall_ms"] = (time.perf_counter() - t0) * 1e3
     assert panels.shape == (600, 800, 3)
     emit(out)
+    return state
+
+
+def phase_packed_frames(smi: str, u238_state) -> None:
+    """Packed frames on the card against ``render_frame`` and the CPU port."""
+    he4 = Simulation(z=2, n=2, seed=0, pad_to=8, device=DEV)
+    for _ in range(3):
+        he4.frame()
+    out = {"phase": "packed_frames", "card": smi, "size": "800x600"}
+    cam, zoom, w, h = (400.0, 400.0), 15.0, 800, 600
+    for name, state in (("u238", u238_state), ("he4", he4.state)):
+        packed = render_frame_packed(state, cam, zoom, w, h)
+        assert packed.is_cuda and packed.dtype == torch.uint8 and packed.shape == (h + 2, w)
+        host = packed.cpu().numpy()
+        k = 10 + state.ejecta_capacity
+        assert host[h + 1, 0] == 1 and host[h + 1, 1] == k - 1, host[h + 1, :2]
+        t0 = time.perf_counter()
+        rgb = unpack_frame(host)
+        unpack_ms = (time.perf_counter() - t0) * 1e3
+        want = render_frame(state, cam, zoom, w, h).cpu().numpy()
+        assert rgb is not None and np.array_equal(rgb, want), name
+        cpu = render_frame_packed(state.to("cpu"), cam, zoom, w, h).numpy()
+        diff = int((host != cpu).sum())
+        assert diff <= PIXEL_DIFF_LIMIT * host.size, (name, diff)
+        pack = lambda: render_frame_packed(state, cam, zoom, w, h)  # noqa: E731
+        draw = lambda: render_frame(state, cam, zoom, w, h)  # noqa: E731
+        out[name] = {"palette_entries": k, "live_ejecta": int(state.ej_alive.sum()),
+                     "flag": int(host[h + 1, 0]), "unpacked_equals_render_frame": True,
+                     "bytes_differing_from_cpu_packed": diff, "bytes": int(host.size),
+                     "rgb_bytes": int(want.size),
+                     "packed_ms_host_paced": device_ms(pack, DEV, 20),
+                     "packed_ms_device": device_ms(pack, DEV, 1),
+                     "render_frame_ms_host_paced": device_ms(draw, DEV, 20),
+                     "render_frame_ms_device": device_ms(draw, DEV, 1),
+                     "unpack_on_host_ms": unpack_ms}
+    try:
+        render_frame_packed(u238_state, cam, zoom, 40, 30)
+    except ValueError as e:
+        out["width_40"] = f"ValueError: {e}"
+    else:
+        raise AssertionError("a 74-entry palette fitted a 40-pixel row")
+    emit(out)
+
+
+@contextlib.contextmanager
+def no_synchronising_call():
+    """PyTorch's synchronisation check set to raise inside the block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _pinned_buffers(reader) -> list:
+    """The addresses of the host buffers a reader holds, ring by ring."""
+    return [b.data_ptr() for ring, _ in reader._rings.values() for b in ring]
+
+
+def phase_frame_reader(smi: str) -> None:
+    """The pipelined reader behind ``frame()`` on one U-238 nucleus."""
+    sim = Simulation(z=92, n=146, seed=0, pad_to=128, device=DEV)
+    sim.set_preset("billion")
+    kinds = {
+        "rgb_64x44": (lambda: sim.render_fit_device(64, 44), lambda a: a),
+        "packed_800x600": (
+            lambda: render_frame_packed(sim.state, tuple(sim.camera), sim.zoom, 800, 600),
+            unpack_frame),
+    }
+    out = {"phase": "frame_reader", "isotope": "U-238", "frames": READER_FRAMES,
+           "depth": READER_DEPTH, "card": smi}
+    for name, (draw, decode) in kinds.items():
+        sim.frame()
+        draw()  # the first picture copies the colour tables to the card
+        torch.cuda.synchronize()
+
+        def blocking() -> float:
+            t0 = time.perf_counter()
+            for _ in range(READER_FRAMES // 2):
+                sim.frame()
+                decode(draw().cpu().numpy())
+            return (time.perf_counter() - t0) / (READER_FRAMES // 2) * 1e3
+
+        def pipelined(depth: int, frames: int):
+            """ms per delivered frame, the device frames, what came out of
+            each ``submit`` (copied at once: a raw frame is valid until the
+            next one), the flushed tail, and the reader."""
+            reader = PipelinedFrameReader(depth=depth, decode=decode)
+            device, handed, rings = [], [], []
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                sim.frame()
+                with no_synchronising_call():  # waiting on its own event is none
+                    frame = draw()
+                    got = reader.submit(frame)
+                device.append(frame)
+                handed.append(None if got is None else got.copy())
+                rings.append(_pinned_buffers(reader))
+            tail = [t.copy() for t in reader.flush()]
+            ms = (time.perf_counter() - t0) / frames * 1e3
+            return ms, device, handed, tail, rings
+
+        blocking_ms = [blocking()]
+        depth1_ms = pipelined(1, READER_FRAMES // 2)[0]
+        ms, device, handed, tail, rings = pipelined(READER_DEPTH, READER_FRAMES)
+        blocking_ms.append(blocking())
+        assert [g is None for g in handed] == (
+            [True] * READER_DEPTH + [False] * (READER_FRAMES - READER_DEPTH)), name
+        assert len(tail) == READER_DEPTH, (name, len(tail))
+        delivered = [g for g in handed if g is not None] + tail
+        assert len(delivered) == READER_FRAMES
+        for i, (got, frame) in enumerate(zip(delivered, device)):
+            want = decode(frame.cpu().numpy())  # the blocking readback of the same device frame
+            assert np.array_equal(got, want), f"{name}: frame {i} differs"
+        assert len({d.tobytes() for d in delivered}) > 1, "every frame was the same picture"
+        # allocated at the first submit and never again: the same buffers after every frame
+        assert all(r == rings[0] for r in rings) and len(set(rings[0])) == READER_DEPTH + 1, rings
+        out[name] = {"bytes_per_frame": int(device[0].numel()),
+                     "handed_out": READER_FRAMES - READER_DEPTH, "flushed": len(tail),
+                     "bitwise_equal_to_blocking_readback": True,
+                     "pinned_buffers": len(rings[0]),
+                     "synchronising_calls_in_draw_and_submit": 0,
+                     "ms_per_frame_depth_3": ms, "ms_per_frame_depth_1": depth1_ms,
+                     "ms_per_frame_blocking_before_and_after": blocking_ms}
+    on_cpu = PipelinedFrameReader(depth=1, decode=lambda a: a)
+    assert on_cpu.submit(torch.zeros(44, 64, 3, dtype=torch.uint8)) is None
+    assert not _pinned_buffers(on_cpu) and len(on_cpu.flush()) == 1
+    out["pinned_buffers_for_a_cpu_tensor"] = len(_pinned_buffers(on_cpu))
+    emit(out)
+
+
+def _http(server, path: str) -> bytes:
+    return urllib.request.urlopen(f"http://127.0.0.1:{server.port}{path}",
+                                  timeout=HTTP_TIMEOUT).read()
+
+
+def _http_status(server) -> dict:
+    def refuse(constant):
+        raise AssertionError(f"/status is not strict JSON: {constant}")
+
+    return json.loads(_http(server, "/status"), parse_constant=refuse)
+
+
+def _http_error(server, path: str) -> int:
+    try:
+        _http(server, path)
+    except urllib.error.HTTPError as e:
+        return e.code
+    raise AssertionError(f"{path} was answered 200")
+
+
+def _read_stream(server, seconds: float, parts: list) -> None:
+    """Read ``/stream`` for ``seconds``; appends the digest of every whole
+    part to ``parts``."""
+    req = urllib.request.urlopen(f"http://127.0.0.1:{server.port}/stream", timeout=HTTP_TIMEOUT)
+    try:
+        assert "multipart/x-mixed-replace" in req.headers["Content-Type"]
+        buf, t0 = b"", time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            buf += req.read1(65536)
+    finally:
+        req.close()
+    for part in buf.split(b"--pyqmd-frame")[1:-1]:
+        png = part.split(b"\r\n\r\n", 1)[1]
+        assert png[:8] == b"\x89PNG\r\n\x1a\n"
+        parts.append(hashlib.sha1(png).hexdigest())
+
+
+def _zero_view_counts() -> None:
+    force_step.launches = force_step.small_launches = overlap_step.launches = 0
+
+
+def phase_viewer(smi: str) -> dict:
+    """The HTTP viewer on the card; returns the kernels' launches under it."""
+    sim = Simulation(z=92, n=146, seed=0, pad_to=128, device=DEV)
+    sim.set_preset("billion")
+    server = LiveViewServer(sim, port=0, fps=30, width=800, height=600)
+    thread = server.start_background()
+    try:
+        page = _http(server, "/")
+        assert b"/stream" in page and b"/control" in page
+        for _ in range(3):
+            assert _png_dimensions(_http(server, "/frame")) == (800, 600)
+        status = _http_status(server)
+        assert status["isotope"] == "U-238" and status["backend"] == "cuda", status
+        assert json.loads(_http(server, "/control?do=faster")) == {"ok": True}
+        faster = _http_status(server)
+        assert faster["time_scale"] == status["time_scale"] * 10, faster
+        _http(server, "/control?do=decay")
+        decayed = _http_status(server)
+        assert sum(decayed["decay_counts"]) == sum(status["decay_counts"]) + 1, decayed
+        assert _http_error(server, "/control?do=nope") == 400
+        assert _http_error(server, "/nope") == 404
+
+        server.pump_frame(-1)  # the first frame, before a reader connects
+        with server.lock:
+            _zero_view_counts()
+            frames_before = sim.frame_count
+        readers = [[], []]
+        threads = [threading.Thread(target=_read_stream, args=(server, STREAM_SECONDS, parts))
+                   for parts in readers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(HTTP_TIMEOUT)
+        assert not any(t.is_alive() for t in threads)
+        with server.lock:  # frame() runs under the lock: the counts belong together
+            pumped = sim.frame_count - frames_before
+            launches = {"force_step": force_step.launches,
+                        "force_step_small": force_step.small_launches,
+                        "overlap_step": overlap_step.launches}
+            steps = sim.substeps_used
+    finally:
+        server.close()
+    thread.join(10)
+    assert not thread.is_alive(), "the server's thread did not end"
+    assert steps == 20 and pumped >= 2, (steps, pumped)
+    assert launches["force_step"] == pumped * steps and launches["force_step_small"] == 0, launches
+    assert launches["overlap_step"] == pumped * sim.cfg.overlap_iterations, launches
+    both = set(readers[0]) & set(readers[1])
+    distinct = len(set(readers[0]) | set(readers[1]))
+    assert len(both) >= 2, (len(readers[0]), len(readers[1]), len(both))
+    runs = []
+    for mine in readers:  # while both are connected: the same frames in the same order
+        at = [mine.index(p) for p in both]
+        runs.append(mine[min(at):max(at) + 1])
+    assert runs[0] == runs[1] and len(runs[0]) == len(both), (runs, len(both))
+    # one cadence: the frames made, not twice that (one may be made while a reader closes)
+    assert distinct - 1 <= pumped <= distinct + 2, (pumped, distinct)
+    out = {"phase": "viewer", "isotope": "U-238", "size": "800x600", "fps_asked": 30,
+           "stream_seconds": STREAM_SECONDS, "frames_pumped": pumped,
+           "frames_to_reader_a": len(readers[0]), "frames_to_reader_b": len(readers[1]),
+           "frames_shared_in_one_order": len(both), "distinct_frames": distinct,
+           "frames_per_second_to_a_stream_reader":
+               max(len(readers[0]), len(readers[1])) / STREAM_SECONDS,
+           "launches": launches, "status": decayed, "card": smi}
+
+    # He-4 (P=8): the viewer's frames run the sub-warp force kernel.
+    he4 = Simulation(z=2, n=2, seed=0, pad_to=8, device=DEV)
+    he4.set_preset("billion")
+    server = LiveViewServer(he4, port=0, fps=30, width=800, height=600)
+    server.start_background()
+    try:
+        assert _http_status(server)["half_life"] is None  # inf is null in strict JSON
+        force_step.small_launches = 0
+        parts = []
+        _read_stream(server, STREAM_SECONDS / 2, parts)
+        with server.lock:
+            small, he4_frames = force_step.small_launches, he4.frame_count
+    finally:
+        server.close()
+    assert he4_frames >= 2 and small == he4_frames * he4.substeps_used, (small, he4_frames)
+    launches["force_step_small"] = small
+    out["he4"] = {"frames_pumped": he4_frames, "force_step_small_launches": small,
+                  "frames_to_a_reader": len(parts)}
+
+    ens = Simulation(z=92, n=146, ensemble=SLICE_B, pad_to=128, seed=0, device=DEV)
+    ens.set_preset("billion")
+    server = LiveViewServer(ens, port=0, fps=30, width=800, height=600)
+    server.start_background()
+    try:
+        assert _http_error(server, "/control?do=decay") == 400
+        before = force_step.launches
+        seq, png, _ = server.pump_frame(-1)
+        assert seq == 1 and _png_dimensions(png) == (800, 600)
+        assert force_step.launches - before == ens.substeps_used == 20
+        status = _http_status(server)
+        assert status["ensemble"] == SLICE_B and status["alive"] > 0, status
+    finally:
+        server.close()
+    out["ensemble"] = {"B": SLICE_B, "decay_control": 400, "status": status}
+    emit(out)
+    return launches
+
+
+def phase_cli_live_and_examples(smi: str) -> int:
+    """``watch`` and ``--serve`` through ``cli.main``, then the example
+    scripts; returns the decay frame kernel's launches."""
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("watch 0.5\nquit\n")
+    try:
+        before = force_step.launches
+        watched = _cli(["--isotope", "U-238", "--time-scale", "1e9yr", "-i", "-q"])
+    finally:
+        sys.stdin = stdin
+    watch_frames = watched.count("\x1b[2J\x1b[H")
+    assert watch_frames >= 1 and "unknown command" not in watched and "error:" not in watched
+    assert "\x1b[38;2;" in watched and "substeps=20" in watched
+    watch_launches = force_step.launches - before
+    assert watch_launches >= 20, watch_launches
+
+    # --serve: the real accept loop, left by the interrupt a user's Ctrl-C raises.
+    served = {}
+    real_loop = LiveViewServer.serve_forever
+
+    def one_frame_then_interrupt(self):
+        thread = threading.Thread(target=real_loop, args=(self,), daemon=True)
+        thread.start()
+        try:
+            served["png"] = _png_dimensions(_http(self, "/frame"))
+            served["backend"] = _http_status(self)["backend"]
+        finally:
+            self.close()
+            thread.join(10)
+        served["thread_ended"] = not thread.is_alive()
+        raise KeyboardInterrupt
+
+    LiveViewServer.serve_forever = one_frame_then_interrupt
+    try:
+        _cli(["--isotope", "C-14", "--serve", "0", "-q"])
+    finally:
+        LiveViewServer.serve_forever = real_loop
+    assert served == {"png": (800, 600), "backend": "cuda", "thread_ended": True}, served
+
+    # Every example on its default device, each in its own directory: four as
+    # processes of their own, all at once (the Bateman theory curve at 6 time
+    # points, not 21: each is a 1000x1000 matrix exponential on the host), and
+    # survival_curve.py meanwhile in this process, where its decay-kernel
+    # launches can be read.
+    args = {"decay_chain_movie.py": ["--frames", "40"],
+            "bateman_vs_ensemble.py": ["--frames", "5"]}
+    scripts = sorted(p.name for p in (REPO / "examples_torch").glob("*.py"))
+    assert len(scripts) == 5, scripts
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name in scripts:
+            cwd = Path(tmp) / name.removesuffix(".py")
+            cwd.mkdir()
+            if name == "survival_curve.py":
+                continue
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(REPO / "examples_torch" / name)] + args.get(name, []),
+                cwd=cwd, env=dict(os.environ, OMP_NUM_THREADS="1"),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        outputs = {}
+        argv, cwd = sys.argv, os.getcwd()
+        try:
+            decay_stats_frame.launches = 0
+            sys.argv = ["survival_curve.py"]
+            os.chdir(Path(tmp) / "survival_curve")
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                runpy.run_path(str(REPO / "examples_torch" / "survival_curve.py"),
+                               run_name="__main__")
+            outputs["survival_curve.py"] = printed.getvalue()
+            decay_launches = decay_stats_frame.launches
+            rows = (Path(tmp) / "survival_curve" / "c14_survival.csv").read_text().splitlines()
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=300)
+                assert proc.returncode == 0, (name, stdout[-2000:], stderr[-2000:])
+                outputs[name] = stdout
+        finally:
+            sys.argv = argv
+            os.chdir(cwd)
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+        examples_s = time.perf_counter() - t0
+        movie = (Path(tmp) / "decay_chain_movie" / "u238_chain.png").read_bytes()
+        assert b"acTL" in movie and _png_dimensions(movie) == (480, 360)
+    assert decay_launches == 30 and len(rows) == 32, (decay_launches, len(rows))
+
+    text = outputs["survival_curve.py"]
+    fit = json.loads(text[:text.rindex("}") + 1])
+    assert fit["rel_error"] < 0.01 and fit["batch"] == 16384, fit
+    worst = float(outputs["bateman_vs_ensemble.py"].split(
+        "worst absolute population error:")[1].split()[0])
+    assert worst < 0.05, worst  # 4 sigma of a population share at 8192 nuclei
+    rows = [l for l in outputs["mixed_population.py"].splitlines() if "Rn-222:" in l]
+    assert len(rows) == 9 and "Rn-222:256" in rows[0], rows
+    # leapfrog_accuracy.py ran the sub-warp force kernel, one launch per step:
+    # halving dt halves Euler's error and quarters leapfrog's, and leapfrog
+    # comes back from 60 steps out and 60 back to within four f32 steps at 7.
+    orders = [[float(c) for c in l.split()]
+              for l in outputs["leapfrog_accuracy.py"].splitlines() if l.strip().startswith("0.0")]
+    assert len(orders) == 3, orders
+    euler_ratio, leapfrog_ratio = (orders[0][k] / orders[1][k] for k in (1, 2))
+    assert 1.7 < euler_ratio < 2.3 and 3.0 < leapfrog_ratio < 5.0, orders
+    drift = {l.split()[0]: float(l.split()[1])
+             for l in outputs["leapfrog_accuracy.py"].splitlines()
+             if l.strip().startswith(("euler ", "leapfrog "))}
+    assert drift["leapfrog"] < 2e-6 < 1e-2 < drift["euler"], drift
+    assert "wrote u238_chain.png (5 frames)" in outputs["decay_chain_movie.py"]
+    emit({"phase": "cli_live_and_examples", "watch_frames_printed": watch_frames,
+          "watch_force_launches": watch_launches, "serve": served,
+          "examples_wall_s_all_at_once": examples_s,
+          "c14_survival_fit": {k: fit[k] for k in ("batch", "fitted_half_life_s", "rel_error",
+                                                   "final_survival")},
+          "c14_decay_frame_launches": decay_launches,
+          "pb214_worst_abs_population_error": worst,
+          "mixed_population_last_row": rows[-1].strip(),
+          "leapfrog_error_ratio_on_halving_dt": leapfrog_ratio,
+          "euler_error_ratio_on_halving_dt": euler_ratio,
+          "leapfrog_table": orders, "round_trip_drift": drift,
+          "movie_last_line": outputs["decay_chain_movie.py"].strip().splitlines()[-1],
+          "card": smi})
+    return decay_launches
 
 
 def main() -> int:
@@ -1202,13 +1648,22 @@ def main() -> int:
     decay_stats_frame.launches = 0
     timed("11 command line", phase_cli, smi)
     cli_decay_launches = decay_stats_frame.launches
-    timed("12 rasterizer", phase_rasterizer, smi)
+    evolved = timed("12 rasterizer", phase_rasterizer, smi)
+    timed("13 packed frames", phase_packed_frames, smi, evolved)
+    timed("14 frame reader", phase_frame_reader, smi)
+    view = timed("15 viewer", phase_viewer, smi)
+    view_decay_launches = timed("16 live CLI and examples", phase_cli_live_and_examples, smi)
     by_name = {k["name"]: k for k in kernels}
     by_name["force"]["sim_launches"] = u238["force_step"]
     by_name["overlap"]["sim_launches"] = u238["overlap_step"] + he4["overlap_step"]
     by_name["force_small"]["sim_launches"] = he4["force_step_small"]
     by_name["decay_stats"]["sim_launches"] = cli_decay_launches  # --survival, --populations
-    assert all(k["launches"] > 0 and k["sim_launches"] > 0 for k in kernels), kernels
+    by_name["force"]["view_launches"] = view["force_step"]
+    by_name["overlap"]["view_launches"] = view["overlap_step"]
+    by_name["force_small"]["view_launches"] = view["force_step_small"]
+    by_name["decay_stats"]["view_launches"] = view_decay_launches  # examples_torch/survival_curve.py
+    assert all(k["launches"] > 0 and k["sim_launches"] > 0 and k["view_launches"] > 0
+               for k in kernels), kernels
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ The batched full-physics ensemble frame and the decay-statistics frame of
 the JAX package, in PyTorch, with the ensemble analysis built on them
 (:mod:`pyqmd_tpu_torch.analysis`), the host loop (:class:`Simulation`:
 substep scheduling, frames in flight, fused runs, decay log, status,
-checkpoints, still rendering) and the command line
+checkpoints, still rendering), the live views (packed frames, the
+pipelined frame reader and the browser viewer of
+:mod:`pyqmd_tpu_torch.render`) and the command line
 (``python -m pyqmd_tpu_torch``). Plain tensor code for the frames and the
 rasterizer, and hand-written CUDA kernels for the force + integrate step
 (a tiled kernel and a sub-warp one for nuclei of up to 32 slots), the

@@ -91,6 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", "--interactive", action="store_true", help="REPL mode")
     p.add_argument("--status-json", action="store_true", help="print final status as JSON")
     p.add_argument(
+        "--serve", metavar="PORT", type=int, default=None,
+        help="serve the live browser view on http://127.0.0.1:PORT/ "
+             "(the graphical-window replacement; Ctrl-C to stop)",
+    )
+    p.add_argument(
         "--profile", metavar="LOGDIR",
         help="capture a torch.profiler trace of the run into LOGDIR/trace.json",
     )
@@ -218,6 +223,8 @@ HELP = """commands (reference keybinding in brackets):
   size W H        set the default viewport size      [VIDEORESIZE]
   status          show info panel
   show [ascii]    color/ASCII view of the nucleus    [main viewport]
+  watch [SECS]    live 60fps ASCII view              [run loop]
+  serve [PORT]    live browser view (blocks; ^C)     [PyGame window]
   render PATH     write PNG of current frame
   save/load PATH  checkpoint
   quit            exit                               [ESC]
@@ -347,6 +354,47 @@ def interactive(sim: Simulation) -> None:
                     print(sim.render_ascii())
                 else:
                     print(sim.render_ansi())
+            elif cmd == "watch":
+                # Real-time loop at ~60 fps with live ASCII refresh — the
+                # run-loop analog (nuclear_sim.py:589-606). Ctrl-C to stop.
+                # The camera fit runs ON DEVICE (render_fit_device) and
+                # frames reach the host through the pipelined reader, so
+                # the loop never waits for the frame it just issued: each
+                # shown frame is 3 frames late.
+                import time as _time
+
+                from pyqmd_tpu_torch.render.ansi import ansi_render
+                from pyqmd_tpu_torch.render.interactive import PipelinedFrameReader
+
+                seconds = float(args[0]) if args else 5.0
+                t_end = _time.time() + seconds
+                # Raw RGB frames (no palettization at this tiny size), so
+                # decode is the identity; depth 3 keeps latency low. Each
+                # frame is printed before the next submit, while it is valid.
+                reader = PipelinedFrameReader(depth=3, decode=lambda a: a)
+                try:
+                    while _time.time() < t_end:
+                        t0 = _time.time()
+                        sim.frame()
+                        rgb = reader.submit(sim.render_fit_device(64, 44))
+                        if rgb is not None:
+                            print("\033[2J\033[H" + ansi_render(rgb))
+                            print(f"{sim.isotope}  ts={sim.time_scale:g}  "
+                                  f"substeps={sim.substeps_used}")
+                        _time.sleep(max(0.0, 1 / 60 - (_time.time() - t0)))
+                    tail = reader.flush()
+                    if tail:  # show the freshest in-flight frame
+                        print("\033[2J\033[H" + ansi_render(tail[-1]))
+                        print(f"{sim.isotope}  ts={sim.time_scale:g}  "
+                              f"substeps={sim.substeps_used}")
+                except KeyboardInterrupt:
+                    pass
+            elif cmd == "serve":
+                from pyqmd_tpu_torch.render.httpview import serve as _serve
+
+                # serve() handles Ctrl-C itself and returns once stopped.
+                _serve(sim, port=int(args[0]) if args else 8400)
+                print("  live view stopped")
             elif cmd == "render":
                 from pyqmd_tpu_torch.render import write_png
 
@@ -476,6 +524,12 @@ def main(argv: list[str] | None = None) -> int:
 
         # Same clamp as every interactive zoom path (nuclear_sim.py:74-75).
         sim.zoom = sim.target_zoom = min(MAX_ZOOM, max(MIN_ZOOM, float(args.zoom)))
+
+    if args.serve is not None:
+        from pyqmd_tpu_torch.render.httpview import serve
+
+        serve(sim, port=args.serve)
+        return 0
 
     if args.interactive:
         interactive(sim)

@@ -166,6 +166,22 @@ def _reference_fuses(zoom, width: int, height: int) -> bool:
     return win_n is None or win_e is None
 
 
+def ejecta_colors(ej_type, ej_age, ej_life) -> torch.Tensor:
+    """(E, 3) f32 colours of the ejecta slots, faded by age over lifetime
+    (rendering.py:47, 66-68). The packed frame's palette is built from the
+    same values, so a drawn ejecta pixel always matches an entry."""
+    fade = torch.where(
+        torch.isinf(ej_life), 0.0, ej_age / torch.clamp(ej_life, min=1e-9)
+    )
+    colors = on_device(_COLORS_F32, ej_type.device)
+    return colors[ej_type.long()] * (1.0 - torch.clamp(fade, max=1.0))[:, None]
+
+
+def to_rgb8(img: torch.Tensor) -> torch.Tensor:
+    """f32 colours as uint8, the rasterizer's final cast."""
+    return torch.clamp(img, 0, 255).to(torch.uint8)
+
+
 def render_frame(
     state: NucleusState,
     camera,
@@ -220,7 +236,6 @@ def render_frame(
 
     # Ejecta pass: the most recently written ring slot wins
     # (rendering.py:46-48), faded by age/lifetime (rendering.py:47, 66-68).
-    ej_life, ej_age = state.ej_life[index], state.ej_age[index]
     e_screen = _world_to_screen(state.ej_pos[index], camera, zoom, width, height)
     r_ej = torch.clamp(torch.floor(EJECTA_RADIUS * zoom), min=1.0)
     e_cap = e_screen.shape[0]
@@ -229,15 +244,12 @@ def render_frame(
     best_r = _winner(e_screen, r_ej, state.ej_alive[index], recency, xs, ys, fused)
     has_ej = best_r >= 0
     best_ei = (torch.clamp(best_r, min=0) + cursor) % e_cap
-    fade = torch.where(
-        torch.isinf(ej_life), 0.0, ej_age / torch.clamp(ej_life, min=1e-9)
-    )
-    e_col = colors[state.ej_type[index].long()] * (1.0 - torch.clamp(fade, max=1.0))[:, None]
+    e_col = ejecta_colors(state.ej_type[index], state.ej_age[index], state.ej_life[index])
     img = torch.where(has_ej[..., None], e_col[best_ei], img)
 
     if ruler:
         img = _burn_ruler(img, zoom, width, height)
-    return torch.clamp(img, 0, 255).to(torch.uint8)
+    return to_rgb8(img)
 
 
 def _burn_ruler(img, zoom, width: int, height: int):

@@ -232,6 +232,7 @@ class Simulation:
         # in flight every N frames, so it never waits for the newest.
         self.nan_check_interval = 30
         self._nan_slots: torch.Tensor | None = None  # pinned host flags, on the card only
+        self._markers_dispatched = 0  # picks the pinned slot, on the card only
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -400,16 +401,27 @@ class Simulation:
         flag = metrics["nan"].any()
         if not flag.is_cuda:
             return _InFlight(None, metrics, num_steps, flag)
-        # One pinned slot per frame that can be in flight, allocated once: a
-        # slot comes round again only after its frame has retired.
-        slots = self._inflight.maxlen + 1
+        # One pinned slot more than the queue holds markers, allocated once
+        # and taken in turn by a count of the markers dispatched (not by
+        # ``frame_count``, which a fused run raises without dispatching one):
+        # a slot comes round again only after the marker that held it has
+        # left the queue.
         if self._nan_slots is None:
-            self._nan_slots = torch.empty(slots, dtype=torch.bool, pin_memory=True)
-        host = self._nan_slots[self.frame_count % slots]
+            self._nan_slots = torch.empty(
+                self._inflight.maxlen + 1, dtype=torch.bool, pin_memory=True
+            )
+        host = self._nan_slots[self._next_nan_slot()]
         host.copy_(flag, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(flag.device))
         return _InFlight(event, metrics, num_steps, host)
+
+    def _next_nan_slot(self) -> int:
+        """Index of the pinned slot for the next marker: the slots are
+        taken in ring order, one per dispatched marker."""
+        slot = self._markers_dispatched % (self._inflight.maxlen + 1)
+        self._markers_dispatched += 1
+        return slot
 
     def _retire(self, metrics: dict, num_steps: int):
         """Push this frame into the pipeline; fence on the frame that

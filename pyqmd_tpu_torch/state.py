@@ -136,6 +136,10 @@ class NucleusState:
     def batch(self) -> int:
         return self.pos.shape[0]
 
+    @property
+    def ejecta_capacity(self) -> int:
+        return self.ej_pos.shape[-2]
+
     def replace(self, **kw) -> "NucleusState":
         return dataclasses.replace(self, **kw)
 

@@ -1,5 +1,6 @@
 """The port's command line on the CPU (``--device cpu``): the batch run,
-resume, every REPL command that is ported, ``--set``, the statistics modes
+resume, every REPL command, the live views (``watch``, ``serve``,
+``--serve``), ``--set``, the statistics modes
 and ``python -m pyqmd_tpu_torch``, with the outputs the JAX package's CLI
 gives for the same arguments where they are deterministic."""
 
@@ -90,19 +91,87 @@ def test_cli_interactive_all_ported_commands(tmp_path, capsys, monkeypatch):
     assert png.exists() and ck.exists() and "loaded:" in out
 
 
-@pytest.mark.parametrize("command", ["watch 0.3", "serve 8400", "serve"])
-def test_commands_that_are_not_ported_are_unknown(command, capsys, monkeypatch):
-    """The live views come later: the REPL neither lists nor pretends them,
-    and the parser has no ``--serve``."""
+def test_watch_prints_ansi_frames_and_returns_to_the_prompt(capsys, monkeypatch):
+    """``watch SECS``: the pipelined ASCII loop, its status line under each
+    frame, the tail flush, then the next command."""
+    monkeypatch.setattr("sys.stdin", io.StringIO("watch 0.3\nstatus\nquit\n"))
+    assert cli_main(CPU + ["--isotope", "He-4", "-i", "-q"]) == 0
+    out = capsys.readouterr().out
+    assert "unknown command" not in out and "error:" not in out
+    assert "\x1b[2J\x1b[H" in out and "\x1b[38;2;" in out  # clear + truecolor frame
+    assert "He-4  ts=1  substeps=4" in out
+    # 64x44 pixels, two per character row: 22 rows of 64 half blocks
+    frame = out.split("\x1b[2J\x1b[H")[-1].split("He-4  ts=")[0]
+    assert frame.count("\n") == 22 and frame.count("\u2580") == 64 * 22
+    assert out.rindex("isotope:    He-4") > out.rindex("\x1b[2J")  # 'status' ran after it
+
+
+def test_watch_stops_on_ctrl_c(capsys, monkeypatch):
+    from pyqmd_tpu_torch.render import interactive
+
+    def interrupted(self, frame):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(interactive.PipelinedFrameReader, "submit", interrupted)
+    monkeypatch.setattr("sys.stdin", io.StringIO("watch\nstatus\nquit\n"))
+    assert cli_main(CPU + ["--isotope", "He-4", "-i", "-q"]) == 0
+    out = capsys.readouterr().out
+    assert "\x1b[2J" not in out and "isotope:    He-4" in out
+
+
+@pytest.mark.parametrize("command,port", [("serve 8123", 8123), ("serve", 8400)])
+def test_serve_command_reaches_the_viewer(command, port, capsys, monkeypatch):
+    """``serve [PORT]`` in the REPL: ``httpview.serve`` on that port, and
+    back at the prompt once it is interrupted."""
+    from pyqmd_tpu_torch.render import httpview
+
+    seen = {}
+
+    def constructed(self, sim, host="127.0.0.1", port=8400, **kw):
+        seen.update(host=host, port=port, isotope=sim.isotope)
+        real_init(self, sim, host=host, port=0, **kw)  # bind no fixed port in a test
+
+    def interrupted(self):
+        seen["served"] = True
+        raise KeyboardInterrupt
+
+    real_init = httpview.LiveViewServer.__init__
+    monkeypatch.setattr(httpview.LiveViewServer, "__init__", constructed)
+    monkeypatch.setattr(httpview.LiveViewServer, "serve_forever", interrupted)
     monkeypatch.setattr("sys.stdin", io.StringIO(f"{command}\nquit\n"))
     assert cli_main(CPU + ["--isotope", "He-4", "-i", "-q"]) == 0
-    assert f"unknown command {command.split()[0]!r}" in capsys.readouterr().out
-    assert "watch" not in cli.HELP and "serve" not in cli.HELP
-    with pytest.raises(SystemExit):
-        cli_main(CPU + ["--serve", "8400"])
+    out = capsys.readouterr().out
+    assert seen == {"host": "127.0.0.1", "port": port, "isotope": "He-4", "served": True}
+    assert "live view stopped" in out and "unknown command" not in out
+
+
+def test_serve_flag_reaches_the_viewer(capsys, monkeypatch):
+    """``--serve PORT`` serves and exits 0 without running a frame loop."""
+    from pyqmd_tpu_torch.render import httpview
+
+    seen = {}
+
+    def serve(sim, host="127.0.0.1", port=8400, fps=30.0):
+        seen.update(port=port, isotope=sim.isotope, ts=sim.time_scale, frames=sim.frame_count)
+
+    monkeypatch.setattr(httpview, "serve", serve)
+    assert cli_main(CPU + ["--isotope", "C-14", "--serve", "8555", "--time-scale", "1e3yr",
+                           "-q"]) == 0
+    assert seen == {"port": 8555, "isotope": "C-14", "ts": 3.15576e10, "frames": 0}
+    assert "isotope:" not in capsys.readouterr().out  # no batch run, no status print
+
+
+def test_help_lists_the_live_views_and_the_jax_switches_stay_gone(capsys):
+    for command in ("watch [SECS]", "serve [PORT]"):
+        assert command in cli.HELP
+    from pyqmd_tpu.cli import HELP as JAX_HELP
+
+    assert cli.HELP == JAX_HELP  # the REPL's commands are the reference's, line for line
+    assert "--serve PORT" in cli.build_parser().format_help()
     for gone in ("--backend", "--platform"):
         with pytest.raises(SystemExit):
             cli_main(CPU + [gone, "cpu"])
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_cli_interactive_ensemble_mode_survives_bad_commands(capsys, monkeypatch):
@@ -207,14 +276,14 @@ def test_parser_describes_the_port():
     assert p.prog == "pyqmd-torch" and "PyTorch / CUDA" in p.description
     assert p.parse_args([]).device == "cuda"
     text = p.format_help()
-    assert "--device" in text and "--serve" not in text and "--backend" not in text
+    assert "--device" in text and "--serve" in text and "--backend" not in text
 
 
 def test_python_dash_m_package_entry():
     r = subprocess.run([sys.executable, "-m", "pyqmd_tpu_torch", "--help"], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0
-    assert "--device" in r.stdout and "--isotope" in r.stdout and "--serve" not in r.stdout
+    assert "--device" in r.stdout and "--isotope" in r.stdout and "--serve PORT" in r.stdout
     r = subprocess.run([sys.executable, "-m", "pyqmd_tpu_torch", "--device", "cpu", "--isotope",
                         "He-4", "--frames", "2", "-q", "--status-json"], cwd=REPO,
                        capture_output=True, text=True, timeout=300)

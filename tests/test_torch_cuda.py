@@ -429,3 +429,113 @@ def test_the_card_renders_what_the_cpu_renders(dev, size, zoom):
     fit = sim.render_fit_device(64, 44)
     sim.state = sim.state.to(dev)
     assert (sim.render_fit_device(64, 44).cpu() == fit).float().mean() > 0.995
+
+
+def _held_slots(sim):
+    """Offsets, within the pinned flag buffer, of the flags that the frames
+    in flight hold."""
+    base = sim._nan_slots.data_ptr()
+    return [f.nan.data_ptr() - base for f in sim._inflight]
+
+
+def test_nan_flag_slots_stay_distinct_across_a_fused_run(dev):
+    """Frames in flight, a fused run (which moves ``frame_count`` without
+    dispatching a marker), more frames: no two frames in the queue ever
+    share a pinned slot, and each flag reads back clean."""
+    sim = Simulation(z=6, n=8, pad_to=8, ensemble=64, device=dev)
+    sim.set_time_scale(3.15576e10)
+    sim.nan_check_interval = 0
+    steps = [sim.frame] * 3 + [lambda: sim.run(2, fused=True)] + [sim.frame] * 2 + [
+        lambda: sim.run(5, fused=True)] + [sim.frame] * 6
+    for step in steps:
+        step()
+        held = _held_slots(sim)
+        assert len(set(held)) == len(held) == len(sim._inflight), held
+    assert sim.frame_count == 11 + 7 and sim._markers_dispatched == 11
+    torch.cuda.synchronize()
+    assert not any(bool(f.nan) for f in sim._inflight)
+
+
+def test_pipelined_reader_on_the_card(dev):
+    """Pinned buffers allocated once, frames bitwise the blocking readback,
+    none of it under a synchronising call; a raw frame handed out is valid
+    until the next submit."""
+    from pyqmd_tpu_torch.render import PipelinedFrameReader, render_frame_packed, unpack_frame
+
+    sim = Simulation(z=6, n=8, pad_to=16, seed=2, device=dev)
+    frames = [render_frame_packed(sim.state, (400.0 + i, 400.0), 6.0, 320, 240) for i in range(9)]
+    want = [f.cpu().numpy() for f in frames]
+    reader = PipelinedFrameReader(depth=3, decode=lambda a: a)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    def pinned():
+        return [b.data_ptr() for ring, _ in reader._rings.values() for b in ring]
+
+    got, kept, first_ring = [], [], None
+    try:
+        for f in frames:
+            got.append(reader.submit(f))
+            first_ring = first_ring or pinned()
+            kept.append(None if got[-1] is None else got[-1].copy())  # while it is valid
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pinned() == first_ring and len(set(first_ring)) == 4  # allocated once
+    assert [g is None for g in got] == [True] * 3 + [False] * 6
+    # copied at hand-out, every frame is the blocking readback
+    for g, w in zip(kept[3:], want):
+        np.testing.assert_array_equal(g, w)
+    # uncopied, only the newest is still whole: older buffers were reused
+    np.testing.assert_array_equal(got[-1], want[5])
+    assert any((g != w).any() for g, w in zip(got[3:-1], want))
+    tail = reader.flush()
+    assert len(tail) == 3
+    for g, w in zip(tail, want[6:]):
+        np.testing.assert_array_equal(unpack_frame(g), unpack_frame(w))
+    assert pinned() == first_ring
+    on_cpu = PipelinedFrameReader(depth=1)
+    on_cpu.submit(frames[0].cpu())
+    assert not on_cpu._rings and len(on_cpu.flush()) == 1
+
+
+def test_packed_frame_on_the_card_is_the_cpu_packed_frame(dev):
+    from pyqmd_tpu_torch.render import render_frame, render_frame_packed, unpack_frame
+
+    sim = Simulation(z=92, n=146, pad_to=128, seed=0, device="cpu")
+    for _ in range(3):
+        sim.force_decay()
+    cpu = render_frame_packed(sim.state, (400.0, 400.0), 15.0, 320, 240).numpy()
+    state = sim.state.to(dev)
+    card = render_frame_packed(state, (400.0, 400.0), 15.0, 320, 240).cpu().numpy()
+    assert card[241, 0] == 1 and (card != cpu).mean() <= 1e-3
+    np.testing.assert_array_equal(
+        unpack_frame(card), render_frame(state, (400.0, 400.0), 15.0, 320, 240).cpu().numpy())
+    with pytest.raises(ValueError):
+        render_frame_packed(state, (400.0, 400.0), 15.0, 40, 30)
+
+
+def test_viewer_threads_run_the_kernels_on_the_simulations_device(dev):
+    """Handler threads step and draw a simulation that lives on the card."""
+    import json
+    import urllib.request
+
+    from pyqmd_tpu_torch.render.httpview import LiveViewServer
+
+    sim = Simulation(z=6, n=8, pad_to=16, device=dev)
+    sim.set_preset("billion")
+    srv = LiveViewServer(sim, port=0, fps=50, width=160, height=120)
+    srv.start_background()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        before = force_step.launches
+        req = urllib.request.urlopen(url + "/stream", timeout=60)
+        buf = b""
+        while buf.count(b"--pyqmd-frame") < 4:
+            buf += req.read(1024)
+        req.close()
+        frames = sim.frame_count
+        assert frames >= 3 and force_step.launches - before >= frames * 20
+        status = json.loads(urllib.request.urlopen(url + "/status", timeout=60).read())
+        assert status["backend"] == "cuda"
+        assert urllib.request.urlopen(url + "/frame", timeout=60).read()[:4] == b"\x89PNG"
+    finally:
+        srv.close()

@@ -53,9 +53,10 @@ _PROBE = textwrap.dedent(
     from pyqmd_tpu_torch import Simulation, cli, load_checkpoint, render_frame
     for needed in ("sim", "cli", "__main__", "utils.checkpoint", "utils.format", "utils.profiling",
                    "data.elements", "render.framebuffer", "render.panels", "render.font",
-                   "render.png", "render.gif", "render.ansi"):
+                   "render.png", "render.gif", "render.ansi", "render.interactive",
+                   "render.httpview"):
         assert "pyqmd_tpu_torch." + needed in names, needed
-    for later in ("render.interactive", "render.httpview", "parallel"):
+    for later in ("parallel",):
         assert "pyqmd_tpu_torch." + later not in names, later
     with tempfile.TemporaryDirectory() as tmp:
         ck, png = os.path.join(tmp, "c.npz"), os.path.join(tmp, "c.png")
@@ -65,6 +66,23 @@ _PROBE = textwrap.dedent(
         sim.run(2, fused=True)
         assert load_checkpoint(ck, device="cpu")[0].batch == 1
         assert render_frame(sim.state, (400.0, 400.0), 5.0, 32, 24).shape == (24, 32, 3)
+
+    # The live views on the CPU: one frame through the reader, one /frame
+    # and one /status from the viewer.
+    import json, urllib.request
+    from pyqmd_tpu_torch.render import PipelinedFrameReader, render_frame_packed
+    from pyqmd_tpu_torch.render.httpview import LiveViewServer
+    reader = PipelinedFrameReader(depth=1)
+    packed = render_frame_packed(sim.state, (400.0, 400.0), 5.0, 240, 60)
+    assert reader.submit(packed) is None and reader.flush()[0].shape == (60, 240, 3)
+    server = LiveViewServer(sim, port=0, fps=20, width=80, height=60)
+    server.start_background()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        assert urllib.request.urlopen(url + "/frame", timeout=60).read()[1:4] == b"PNG"
+        assert json.loads(urllib.request.urlopen(url + "/status", timeout=60).read())["z"] == 6
+    finally:
+        server.close()
     assert "pyqmd_tpu" not in sys.modules and "triton" not in sys.modules
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules
                    if sys.modules[m] is not None)
@@ -82,4 +100,4 @@ def test_port_imports_without_jax_and_builds_nothing():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split("MODULES")[1])
     # config, state, prng, analysis, data/*, core/*, kernels/*, sim, cli, utils/*, render/*
-    assert n_modules >= 35
+    assert n_modules >= 37

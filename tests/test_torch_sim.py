@@ -336,6 +336,24 @@ def test_throughput_observability_and_the_queue():
     assert len(sim._inflight) == 0 and sim.fps == 0.0
 
 
+def test_nan_flag_slots_are_taken_in_turn_whatever_the_frame_count():
+    """The pinned slot of a frame's NaN flag comes from a count of the
+    markers dispatched: a fused run raises ``frame_count`` by k and
+    dispatches none, so slots picked by ``frame_count`` could meet."""
+    sim = Simulation(z=2, n=2, pad_to=8, device="cpu")
+    slots = sim._inflight.maxlen + 1
+    held = []  # the slots of the markers a queue of maxlen - 1 would hold
+    for step in range(3 * slots):
+        if step in (4, 9):
+            sim.run(2, fused=True)  # moves frame_count, takes no slot
+            sim.run(slots, fused=True)
+        held = (held + [sim._next_nan_slot()])[-sim._inflight.maxlen:]
+        assert len(set(held)) == len(held), (step, held)
+        assert held[-1] == step % slots
+    assert sim._markers_dispatched == 3 * slots and sim.frame_count == 2 * (2 + slots)
+    assert sim._nan_slots is None  # no pinned memory on the CPU
+
+
 def test_nan_guard_reads_the_oldest_frame_at_its_cadence(caplog):
     sim = Simulation(z=2, n=2, pad_to=8, device="cpu")
     sim.nan_check_interval = 3
