@@ -93,10 +93,34 @@ nonzero, and nothing catches it:
     viewer on 10240 U-238 nuclei (``decay`` answers 400);
 16. the live views from the command line, in process: the REPL's ``watch``
     and ``--serve`` with one ``/frame`` fetched; then every script of
-    ``examples_torch/`` on its default device (the card), four as
-    subprocesses all at once and ``survival_curve.py`` in process, where its
+    ``examples_torch/`` but ``sharded_survival.py`` (phase 17) on its
+    default device (the card), four as subprocesses all at once and
+    ``survival_curve.py`` in process, where its
     decay-kernel launches are read; the C-14 fit within 1%, and the orders
-    of Euler and leapfrog from the sub-warp force kernel.
+    of Euler and leapfrog from the sub-warp force kernel;
+17. the sharded path (``pyqmd_tpu_torch.parallel``) in a world of one:
+    ``make_mesh()`` starts NCCL rank 0 of 1 on the card, and every line
+    says so (``"world": 1, "backend": "nccl"``). ``make_sharded_frame_fn``
+    on the U-238 and He-4 slices (10240 nuclei, 3 frames of 20 substeps),
+    every state field bitwise the bare ``make_frame_fn`` loop on the same
+    seed and ``survivors`` the count of members still in the initial
+    isotope, both timed per frame in turns; ``make_sharded_run_fn`` over
+    the same frames, bitwise the frame loop; ``make_sharded_decay_fn`` on
+    C-14 at 2,097,152 nuclei, 20 frames of 10 substeps, bitwise the bare
+    decay loop, the fit from ``survivors`` within 1% of 5,730 years with 20
+    frame-kernel launches; ``save_checkpoint_sharded`` /
+    ``load_checkpoint_sharded`` of that state (seconds and bytes), every
+    field and the next frame bitwise; the ring (``make_ring_force_step``,
+    ``make_ring_frame_fn``, one U-238 nucleus) and the hybrid frame
+    (``make_hybrid_frame_fn``, U-238 B=1024, P=256), exact math: a force
+    step through the ring within 1e-4 of the kernel's, then frames of 2
+    substeps, each bitwise the frame with the plain force step, integer
+    fields equal to the kernel frame's and pos/vel within 1e-3 of it (phase
+    5's bar for a frame) after the first, each frame's ms beside the kernel
+    frame's (the ring's hop is tensor code, as in the reference; the
+    overlap kernel still runs); then
+    ``examples_torch/sharded_survival.py`` as a subprocess on its default
+    device. The group is destroyed at the end of the phase.
 
 A kernel's bound is the least time the card could take for the same work,
 from this run's inputs: the larger of the bytes it must move (each input
@@ -110,7 +134,8 @@ package's cost model, ``forces_pallas.py:474, 485``); a threefry2x32 hash
 
 Every phase prints its seconds. The line before the last is the kernels'
 JSON summary (``launches`` from phases 4 and 7, ``sim_launches`` from
-phase 9, ``view_launches`` from phases 15 and 16); the last line is
+phase 9, ``view_launches`` from phases 15 and 16, ``sharded_launches``
+from phase 17); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 and prints no result.
 """
@@ -139,6 +164,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pyqmd_tpu_torch import (
     SimConfig,
@@ -146,6 +172,7 @@ from pyqmd_tpu_torch import (
     analysis,
     cli,
     ensemble_init,
+    init_state,
     load_checkpoint,
     make_decay_frame_fn,
     make_frame_fn,
@@ -162,6 +189,18 @@ from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import SMALL_MAX_PARTICLES, force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
+from pyqmd_tpu_torch.parallel import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    make_hybrid_frame_fn,
+    make_mesh,
+    make_ring_force_step,
+    make_ring_frame_fn,
+    make_sharded_decay_fn,
+    make_sharded_frame_fn,
+    make_sharded_run_fn,
+    shard_ensemble,
+)
 from pyqmd_tpu_torch.render import (
     PipelinedFrameReader,
     render_frame,
@@ -173,6 +212,7 @@ from pyqmd_tpu_torch.render.httpview import LiveViewServer
 from pyqmd_tpu_torch.state import DECAY_ALPHA, DECAY_BETA_MINUS, DECAY_BETA_PLUS, PROTON
 from pyqmd_tpu_torch.state import DECAY_NEUTRON_EMISSION, DECAY_PROTON_EMISSION
 from pyqmd_tpu_torch.state import state_to_numpy
+from pyqmd_tpu_torch.utils.checkpoint import load_checkpoint_sharded, save_checkpoint_sharded
 
 DEV = torch.device("cuda:0")
 DT = 1 / 240.0
@@ -197,6 +237,12 @@ PIXEL_DIFF_LIMIT = 1e-3  # share of a frame's pixels the card may draw unlike th
 READER_FRAMES, READER_DEPTH = 20, 3
 HTTP_TIMEOUT = 120  # seconds, on every request
 STREAM_SECONDS = 2.0
+HYBRID_B = 1024  # the ring's (B, P/D, P/D) pair temporaries: 268 MB each at D = 1
+RING_STEPS = 2  # substeps of the ring and hybrid frames: tests/test_parallel.py's hybrid
+# A frame of the plain force step against the kernel frame: phase 5's bar.
+# f32 rounding order alone moves a 1024-nucleus U-238 frame by up to 4e-4
+# over 4 substeps; a single step is held to EXACT_TOL.
+FRAME_TOL = 1e-3
 REPO = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA's data sheet and Hopper white paper).
@@ -1539,7 +1585,9 @@ def phase_cli_live_and_examples(smi: str) -> int:
     # launches can be read.
     args = {"decay_chain_movie.py": ["--frames", "40"],
             "bateman_vs_ensemble.py": ["--frames", "5"]}
-    scripts = sorted(p.name for p in (REPO / "examples_torch").glob("*.py"))
+    # sharded_survival.py runs in phase 17, with the sharded path.
+    scripts = sorted(p.name for p in (REPO / "examples_torch").glob("*.py")
+                     if p.name != "sharded_survival.py")
     assert len(scripts) == 5, scripts
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1617,6 +1665,203 @@ def phase_cli_live_and_examples(smi: str) -> int:
     return decay_launches
 
 
+def _states_equal(a, b, what: str) -> None:
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), (what, f.name)
+
+
+def _state_diff(a, b, what: str) -> float:
+    """Integer fields equal; returns the largest pos/vel difference."""
+    for f in INT_FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), (what, f)
+    return max(max_diff(a.pos, b.pos), max_diff(a.vel, b.vel))
+
+
+def phase_sharded(smi: str) -> dict:
+    """17: the sharded path in a world of one; returns each kernel's
+    launches from the sharded calls alone."""
+    mesh = make_mesh()
+    world, backend = dist.get_world_size(), dist.get_backend()
+    assert (world, backend) == (1, "nccl"), (world, backend)
+    where = {"world": world, "backend": backend, "card": smi}
+    launches = dict.fromkeys(("force", "force_small", "overlap", "decay_stats"), 0)
+
+    def sharded(fn, *args):
+        """A call of the sharded path, its kernel launches counted."""
+        force_step.launches = force_step.small_launches = 0
+        overlap_step.launches = decay_stats_frame.launches = 0
+        out = fn(*args)
+        launches["force"] += force_step.launches - force_step.small_launches
+        launches["force_small"] += force_step.small_launches
+        launches["overlap"] += overlap_step.launches
+        launches["decay_stats"] += decay_stats_frame.launches
+        return out
+
+    def timed_ms(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # Full-physics frames: sharded and bare in turns from one seed.
+    for isotope, z, n, pad in (("U-238", 92, 146, 128), ("He-4", 2, 2, 8)):
+        cfg = SimConfig.for_isotope(z, n, pad_to=pad)
+        steps = cfg.num_substeps(FRAME_DT, TIME_SCALE)
+        init = ensemble_init(cfg, SLICE_B, seed=0, device=DEV)
+        a, fused_in = shard_ensemble(init, mesh), shard_ensemble(init, mesh)
+        frame = make_sharded_frame_fn(cfg, steps, mesh)
+        bare = make_frame_fn(cfg, steps, batched=True)
+        b, ms, bare_ms = init, [], []
+        for _ in range(FRAMES):
+            (a, m), t = timed_ms(sharded, frame, a, TIME_SCALE, FRAME_DT)
+            ms.append(t)
+            # The sharded frames pass no raw physics dt, as the reference's do.
+            (b, mb), t = timed_ms(bare, b, TIME_SCALE, FRAME_DT, cfg.effective_dt(), None)
+            bare_ms.append(t)
+        _states_equal(a, b, f"{isotope} sharded frame vs bare loop")
+        survivors = int(((a.z == z) & (a.n == n)).sum())
+        assert int(m["survivors"]) == survivors, (int(m["survivors"]), survivors)
+        assert torch.equal(m["total_decay_counts"], mb["total_decay_counts"])
+        assert int(m["total_alive"]) == int(mb["total_alive"])
+        decays = int(m["total_decay_counts"].sum())
+        assert (decays > 0) if z > 2 else (decays == 0 and survivors == SLICE_B), decays
+        line = {"phase": "sharded", "case": f"{isotope.lower()}_frame", "B": SLICE_B,
+                "P": cfg.max_particles, "frames": FRAMES, "substeps_per_frame": steps,
+                "bitwise_vs_bare_loop": True, "survivors": survivors, "decays": decays,
+                "ms_per_frame_sharded": ms, "ms_per_frame_bare": bare_ms, **where}
+        if z > 2:
+            run = make_sharded_run_fn(cfg, steps, FRAMES, mesh)
+            (r, mr), t = timed_ms(sharded, run, fused_in, TIME_SCALE, FRAME_DT)
+            _states_equal(r, a, "sharded run vs sharded frame loop")
+            assert int(mr["survivors"]) == survivors
+            line.update(run_bitwise_vs_frame_loop=True, run_ms_per_frame=t / FRAMES)
+        emit(line)
+        del init, a, b, fused_in
+
+    # The decay-statistics slice, sharded: C-14 at 2M, the fit from the
+    # summed survivors.
+    cfg = SimConfig.for_isotope(6, 8, pad_to=8, max_chain_log=8)
+    hl = analysis.half_life_host(6, 8)
+    sim_dt, stats_frames = 2.0 * hl / 20, 20
+    init = ensemble_init(cfg, C14_B, seed=0, device=DEV)
+    a = shard_ensemble(init, mesh)
+    fn = make_sharded_decay_fn(cfg, 10, mesh)
+    bare = make_decay_frame_fn(cfg, 10)
+    b, ms, bare_ms, before = init, [], [], launches["decay_stats"]
+    for _ in range(stats_frames):
+        (a, m), t = timed_ms(sharded, fn, a, sim_dt, 1.0)
+        ms.append(t)
+        (b, _), t = timed_ms(bare, b, sim_dt, 1.0)
+        bare_ms.append(t)
+    frame_launches = launches["decay_stats"] - before
+    assert frame_launches == stats_frames, frame_launches
+    _states_equal(a, b, "sharded decay frame vs bare decay loop")
+    del init, b
+    surv = int(m["survivors"]) / C14_B
+    fit = math.log(2) * 2.0 * hl / -math.log(surv)
+    err = abs(fit - hl) / hl
+    assert err < 0.01, err
+    emit({"phase": "sharded", "case": "c14_decay", "B": C14_B, "frames": stats_frames,
+          "substeps_per_frame": 10, "frame_kernel_launches": frame_launches,
+          "bitwise_vs_bare_loop": True, "survival": surv,
+          "fitted_half_life_years": fit / 3.15576e7, "rel_error": err,
+          "ms_per_frame_sharded": [round(t, 3) for t in ms],
+          "ms_per_frame_bare": [round(t, 3) for t in bare_ms], **where})
+
+    # The sharded checkpoint of that state, and one more frame from each.
+    nbytes_state = sum(getattr(a, f.name).numel() * getattr(a, f.name).element_size()
+                       for f in dataclasses.fields(a))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "c14_2m")
+        _, save_ms = timed_ms(save_checkpoint_sharded, path, a, cfg, mesh)
+        nbytes = sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+        (back, cfg_back), load_ms = timed_ms(load_checkpoint_sharded, path, a, mesh)
+    assert cfg_back == cfg
+    _states_equal(back, a, "sharded checkpoint")
+    nxt, _ = sharded(fn, a, sim_dt, 1.0)
+    nxt_back, _ = sharded(fn, back, sim_dt, 1.0)
+    _states_equal(nxt_back, nxt, "a frame from the restored state")
+    emit({"phase": "sharded", "case": "checkpoint", "B": C14_B, "fields_bitwise": True,
+          "next_frame_bitwise": True, "save_s": save_ms / 1e3, "load_s": load_ms / 1e3,
+          "bytes_on_disk": nbytes, "state_bytes": nbytes_state, **where})
+    del a, back, nxt, nxt_back
+
+    # The ring and the hybrid frame, exact math. One force step through the
+    # ring against the kernel's at EXACT_TOL, for one nucleus and for the
+    # hybrid's batch; each frame bitwise the same frame with the plain force
+    # step (a ring of one adds no rounding); against the kernel frame the
+    # integer fields equal in every frame and pos/vel within FRAME_TOL after
+    # the first (later frames' differences printed only).
+    exact = dataclasses.replace(SimConfig.for_isotope(92, 146, pad_to=128), fast_math=False)
+    model = make_mesh((1,), (MODEL_AXIS,))
+    one = init_state(exact, seed=0, device=DEV)
+    before = dict(launches)
+    hmesh = make_mesh((1, 1), (DATA_AXIS, MODEL_AXIS))
+    init = ensemble_init(exact, HYBRID_B, seed=0, device=DEV)
+    force_err = {}
+    for name, mesh_, st in (("ring", model, one), ("hybrid", hmesh, init)):
+        rp, rv = sharded(make_ring_force_step(exact, mesh_), st.pos, st.vel, st.ptype,
+                         st.alive, DT)
+        kp, kv = force_step(st.pos, st.vel, st.ptype, st.alive, DT, exact)
+        force_err[name] = max(max_diff(rp, kp), max_diff(rv, kv))
+        assert force_err[name] <= EXACT_TOL, (name, force_err)
+    cases = (("ring", make_ring_frame_fn(exact, RING_STEPS, model), one,
+              lambda st, f: step.simulate_frame(st, exact, TIME_SCALE, FRAME_DT, RING_STEPS,
+                                                force_step_fn=f)),
+             ("hybrid", make_hybrid_frame_fn(exact, RING_STEPS, hmesh),
+              shard_ensemble(init, hmesh),
+              lambda st, f: step.ensemble_step(st, exact, TIME_SCALE, FRAME_DT, RING_STEPS,
+                                               force_step_fn=f)))
+    line = {"phase": "sharded", "case": "ring_and_hybrid", "P": exact.max_particles,
+            "substeps_per_frame": RING_STEPS, "hybrid_B": HYBRID_B,
+            "force_step_max_abs_err_vs_kernel": force_err}
+    for name, frame, st, dense in cases:
+        kern, ms, kernel_ms, errs = st, [], [], []
+        for i in range(FRAMES):
+            (out, m), t = timed_ms(sharded, frame, st, TIME_SCALE, FRAME_DT)
+            ms.append(t)
+            if i == 0:
+                plain, _ = dense(st, plain_forces.force_step)
+                _states_equal(out, plain, f"{name} frame vs the plain force step's frame")
+            (kern, km), t = timed_ms(dense, kern, None)
+            kernel_ms.append(t)
+            errs.append(_state_diff(out, kern, f"{name} frame vs kernel frame"))
+            if name == "hybrid":
+                assert torch.equal(m["total_decay_counts"], km["total_decay_counts"])
+                assert int(m["survivors"]) == int(((kern.z == 92) & (kern.n == 146)).sum())
+            st = out
+        assert errs[0] <= FRAME_TOL, (name, errs)
+        line.update({f"{name}_bitwise_vs_plain_force_frame": True,
+                     f"{name}_max_abs_err_vs_kernel_frame": errs,
+                     f"{name}_ms_per_frame": ms, f"{name}_kernel_frame_ms_per_frame": kernel_ms})
+    ring_launches = {k: launches[k] - before[k] for k in launches}
+    # The ring replaces the force kernel; the overlap kernel still runs.
+    assert ring_launches["force"] == 0, ring_launches
+    assert ring_launches["overlap"] == 2 * FRAMES * exact.overlap_iterations, ring_launches
+    emit({**line, "launches": ring_launches, **where})
+    del init, kern, out, st
+    dist.destroy_process_group()
+
+    # The example on its default device: one rank per visible card.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "examples_torch" / "sharded_survival.py")],
+            cwd=tmp, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        example_s = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-2000:])
+    lines = proc.stdout.strip().splitlines()
+    n_cards = torch.cuda.device_count()
+    assert lines[0] == f"{1024 * n_cards} C-14 nuclei over {n_cards} devices (nccl)", lines
+    assert lines[1].startswith("survival after 2 T1/2: ") and len(lines) == 3, lines
+    emit({"phase": "sharded", "case": "example", "printed": lines, "wall_s": example_s,
+          "sharded_launches": launches, **where})
+    assert all(v > 0 for v in launches.values()), launches
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1653,6 +1898,7 @@ def main() -> int:
     timed("14 frame reader", phase_frame_reader, smi)
     view = timed("15 viewer", phase_viewer, smi)
     view_decay_launches = timed("16 live CLI and examples", phase_cli_live_and_examples, smi)
+    sharded = timed("17 sharded path, world of one", phase_sharded, smi)
     by_name = {k["name"]: k for k in kernels}
     by_name["force"]["sim_launches"] = u238["force_step"]
     by_name["overlap"]["sim_launches"] = u238["overlap_step"] + he4["overlap_step"]
@@ -1662,8 +1908,10 @@ def main() -> int:
     by_name["overlap"]["view_launches"] = view["overlap_step"]
     by_name["force_small"]["view_launches"] = view["force_step_small"]
     by_name["decay_stats"]["view_launches"] = view_decay_launches  # examples_torch/survival_curve.py
+    for name, count in sharded.items():
+        by_name[name]["sharded_launches"] = count
     assert all(k["launches"] > 0 and k["sim_launches"] > 0 and k["view_launches"] > 0
-               for k in kernels), kernels
+               and k["sharded_launches"] > 0 for k in kernels), kernels
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

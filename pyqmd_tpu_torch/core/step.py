@@ -71,8 +71,8 @@ METRIC_KEYS = (
     "time_passed", "com", "chain_cursor", "rms_radius",
 )
 
-# Ensemble aggregates. ``survivors`` is added only by the multi-device
-# frame of the JAX package, which the port does not have yet.
+# Ensemble aggregates. ``survivors`` is added only by the sharded frames of
+# :mod:`pyqmd_tpu_torch.parallel`, which sum all three over the data group.
 AGGREGATE_METRIC_KEYS = ("total_decay_counts", "total_alive", "survivors")
 
 
@@ -171,16 +171,24 @@ def _frame_body(
     num_steps: int,
     physics_dt=None,
     raw_physics_dt=None,
+    force_step_fn=None,
 ) -> NucleusState:
     """The full-physics frame without its metrics: clock, key tree,
-    ``num_steps`` substeps and the overlap projection."""
+    ``num_steps`` substeps and the overlap projection.
+
+    ``force_step_fn`` replaces the force + integrate step, with the
+    signature of :func:`pyqmd_tpu_torch.kernels.forces.force_step`
+    ``(pos, vel, ptype, alive, dt, cfg)``; the particle-axis ring of
+    :mod:`pyqmd_tpu_torch.parallel.ring` runs through it while the rest of
+    the frame stays replicated. ``None`` is the kernel wrapper."""
+    fstep = force_step_fn or force_step
     states, dyn, k3, step_keys = _batched_frame_preamble(
         states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
     )
     for s in range(num_steps):
         states = advance_ejecta(states, cfg, dyn)
         states, _ = maybe_decay(states, cfg, step_keys[s], dyn)
-        pos, vel = force_step(
+        pos, vel = fstep(
             states.pos, states.vel, states.ptype, states.alive, dyn.physics_dt, cfg
         )
         states = states.replace(pos=pos, vel=vel)
@@ -197,14 +205,17 @@ def ensemble_step(
     num_steps: int,
     physics_dt=None,
     raw_physics_dt=None,
+    force_step_fn=None,
 ) -> tuple[NucleusState, dict]:
     """One frame of ``num_steps`` substeps over a batch of nuclei.
 
     Per-nucleus metrics keep their batch axis; the aggregate decay
-    statistics are summed on the device.
+    statistics are summed on the device. ``force_step_fn`` as in
+    :func:`_frame_body`.
     """
     states = _frame_body(
-        states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
+        states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt,
+        force_step_fn,
     )
     return states, _ensemble_metrics(states)
 
@@ -262,13 +273,15 @@ def simulate_frame(
     num_steps: int,
     physics_dt=None,
     raw_physics_dt=None,
+    force_step_fn=None,
 ) -> tuple[NucleusState, dict]:
     """One frame of a single nucleus: the ``B = 1`` case of
     :func:`ensemble_step`, with per-nucleus metrics only."""
     if state.batch != 1:
         raise ValueError(f"simulate_frame takes a batch of 1, got {state.batch}")
     state = _frame_body(
-        state, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
+        state, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt,
+        force_step_fn,
     )
     return state, state_metrics(state)
 

@@ -539,3 +539,173 @@ def test_viewer_threads_run_the_kernels_on_the_simulations_device(dev):
         assert urllib.request.urlopen(url + "/frame", timeout=60).read()[:4] == b"\x89PNG"
     finally:
         srv.close()
+
+
+# --- the sharded path: a world of one on one card, NCCL ranks on several ---
+
+
+@pytest.fixture
+def world_of_one(dev):
+    """``make_mesh()`` in a process with no group: NCCL rank 0 of 1 on the
+    card; the group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from pyqmd_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    try:
+        assert (dist.get_world_size(), dist.get_backend()) == (1, "nccl")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _assert_states_equal(a, b):
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+def test_world_of_one_sharded_frames_are_the_bare_loops(dev, world_of_one):
+    from pyqmd_tpu_torch import make_decay_frame_fn, make_frame_fn
+    from pyqmd_tpu_torch.parallel import (
+        make_sharded_decay_fn,
+        make_sharded_frame_fn,
+        make_sharded_run_fn,
+        shard_ensemble,
+    )
+
+    cfg = SimConfig.for_isotope(92, 146, pad_to=128)
+    init = ensemble_init(cfg, 64, seed=0, device=dev)
+    a, fused = shard_ensemble(init, world_of_one), shard_ensemble(init, world_of_one)
+    fn = make_sharded_frame_fn(cfg, 20, world_of_one)
+    bare, b = make_frame_fn(cfg, 20, batched=True), init
+    for _ in range(2):
+        a, m = fn(a, 3.15576e18, 1 / 60.0)
+        b, _ = bare(b, 3.15576e18, 1 / 60.0, cfg.effective_dt(), None)
+    _assert_states_equal(a, b)
+    assert int(m["survivors"]) == int(((a.z == 92) & (a.n == 146)).sum()) < 64
+    fused, _ = make_sharded_run_fn(cfg, 20, 2, world_of_one)(fused, 3.15576e18, 1 / 60.0)
+    _assert_states_equal(fused, a)
+
+    c14 = SimConfig.for_isotope(6, 8, pad_to=8)
+    init = ensemble_init(c14, 4096, seed=1, device=dev)
+    a, m = make_sharded_decay_fn(c14, 10, world_of_one)(
+        shard_ensemble(init, world_of_one), 1e11, 1.0)
+    b, _ = make_decay_frame_fn(c14, 10)(init, 1e11, 1.0)
+    _assert_states_equal(a, b)
+    assert int(m["survivors"]) == int(((b.z == 6) & (b.n == 8)).sum())
+
+
+def test_world_of_one_sharded_checkpoint(dev, world_of_one, tmp_path):
+    from pyqmd_tpu_torch.parallel import make_sharded_frame_fn, shard_ensemble
+    from pyqmd_tpu_torch.utils.checkpoint import load_checkpoint_sharded, save_checkpoint_sharded
+
+    cfg = SimConfig.for_isotope(6, 8, pad_to=8)
+    fn = make_sharded_frame_fn(cfg, 2, world_of_one)
+    st, _ = fn(shard_ensemble(ensemble_init(cfg, 256, seed=0, device=dev), world_of_one),
+               3.15576e16, 1 / 60.0)
+    save_checkpoint_sharded(str(tmp_path / "ck"), st, cfg, world_of_one)
+    back, cfg2 = load_checkpoint_sharded(str(tmp_path / "ck"), st, world_of_one)
+    whole, _ = load_checkpoint_sharded(str(tmp_path / "ck"))  # the card by default
+    assert cfg2 == cfg and back.pos.is_cuda and whole.pos.is_cuda
+    _assert_states_equal(back, st)
+    _assert_states_equal(whole, st)
+    _assert_states_equal(fn(back, 3.15576e16, 1 / 60.0)[0], fn(st, 3.15576e16, 1 / 60.0)[0])
+
+
+@pytest.fixture(scope="module")
+def nccl_ranks(tmp_path_factory):
+    """``tests/_torch_dist_worker.py`` over min(cards, 4) NCCL ranks, one
+    per card; skips below two cards."""
+    import pickle
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    world = min(torch.cuda.device_count(), 4)
+    out = tmp_path_factory.mktemp("nccl")
+    worker = Path(__file__).with_name("_torch_dist_worker.py")
+    proc = subprocess.run(
+        [sys.executable, str(worker), "--world", str(world), "--out", str(out), "--device", "cuda"],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    res = []
+    for r in range(world):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    return world, out, res
+
+
+def test_nccl_sharded_frames_match_one_card(dev, nccl_ranks):
+    """Each nucleus runs the same kernels whatever the batch around it, so
+    the sharded frame, decay frame and fused run over N cards are bitwise
+    one card's."""
+    from _torch_dist_worker import gather
+
+    from pyqmd_tpu_torch.core.step import decay_ensemble_step, ensemble_step
+
+    world, _, res = nccl_ranks
+    assert all(r["world_started"] == (world, "nccl") for r in res)
+    c14 = SimConfig.for_isotope(6, 8, pad_to=8)
+    one, _ = ensemble_step(ensemble_init(c14, 32, seed=0, device=dev), c14, 1.0, 1 / 60.0, 2)
+    got = gather([r["sharded_frame"] for r in res], "state")
+    for f, a in state_to_numpy(one).items():
+        np.testing.assert_array_equal(got[f], a, err_msg=f)
+    pb = SimConfig.for_isotope(82, 132, pad_to=8)
+    one, _ = decay_ensemble_step(ensemble_init(pb, 32, seed=0, device=dev), pb, 400.0, 1.0, 4)
+    got = gather([r["decay"] for r in res], "state")
+    for f, a in state_to_numpy(one).items():
+        np.testing.assert_array_equal(got[f], a, err_msg=f)
+    assert int(res[0]["decay"]["survivors"]) == int(((got["z"] == 82) & (got["n"] == 132)).sum())
+    loop, run = gather([r["run"] for r in res], "loop"), gather([r["run"] for r in res], "run")
+    for f in loop:
+        np.testing.assert_array_equal(run[f], loop[f], err_msg=f)
+
+
+def test_nccl_ring_and_hybrid_match_the_kernel(dev, nccl_ranks):
+    """The ring over N cards against the plain force and the hybrid frame
+    against the kernel frame, exact math: integers equal, pos/vel within
+    1e-4."""
+    from _torch_dist_worker import gather
+
+    from pyqmd_tpu_torch.core.init import init_state
+    from pyqmd_tpu_torch.core.step import ensemble_step
+
+    world, _, res = nccl_ranks
+    fe = SimConfig.for_isotope(26, 30, pad_to=8, fast_math=False)
+    st = init_state(fe, seed=0, device=dev)
+    ref = force_step(st.pos, st.vel, st.ptype, st.alive, DT, fe)
+    for r in res:
+        np.testing.assert_allclose(r["ring_force"]["pos"], ref[0][0].cpu().numpy(), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(r["ring_force"]["vel"], ref[1][0].cpu().numpy(), atol=1e-4, rtol=1e-4)
+    u = SimConfig.for_isotope(92, 146, pad_to=32, fast_math=False)
+    dense, _ = ensemble_step(ensemble_init(u, 8, seed=0, device=dev), u, 3.15576e16, 1 / 60.0, 2)
+    dense = state_to_numpy(dense)
+    assert set(res[0]["hybrid"]) == {(world // m, m) for m in (1, 2, 4) if world % m == 0}
+    for shape in res[0]["hybrid"]:
+        got = gather([r["hybrid"][shape] for r in res], "state")
+        for f in _torch_parity.INT_FIELDS:
+            np.testing.assert_array_equal(got[f], dense[f], err_msg=(shape, f))
+        for f in ("pos", "vel"):
+            np.testing.assert_allclose(got[f], dense[f], atol=1e-4, rtol=1e-4, err_msg=str(shape))
+
+
+def test_nccl_sharded_checkpoint(dev, nccl_ranks):
+    """Saved over N cards: restored bitwise on the same world, the next
+    frame bitwise, and whole in this process, which has no group."""
+    from _torch_dist_worker import gather
+
+    from pyqmd_tpu_torch.utils.checkpoint import load_checkpoint_sharded
+
+    _, out, res = nccl_ranks
+    for layout in ("1d", "2d"):
+        parts = [r["checkpoint"][layout] for r in res]
+        saved = gather(parts, "saved")
+        for p in parts:
+            for f in p["saved"]:
+                np.testing.assert_array_equal(p["restored"][f], p["saved"][f], err_msg=f)
+                np.testing.assert_array_equal(p["next_restored"][f], p["next_saved"][f], err_msg=f)
+        whole, _ = load_checkpoint_sharded(str(out / f"ck_{layout}"))
+        for f, a in state_to_numpy(whole).items():
+            np.testing.assert_array_equal(a, saved[f], err_msg=f)

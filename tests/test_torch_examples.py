@@ -24,9 +24,10 @@ _ARGS = {
     "bateman_vs_ensemble.py": ["--cpu", "--batch", "512"],
     "decay_chain_movie.py": ["--cpu", "--frames", "40"],
     "leapfrog_accuracy.py": ["--cpu"],
+    "sharded_survival.py": ["--cpu", "--per-device", "64"],
 }
 # Examples of the JAX package that wait for a part of the port.
-_NOT_YET = {"sharded_survival.py"}  # needs the multi-device ensemble
+_NOT_YET = set()
 
 
 def _scripts(folder):
@@ -81,7 +82,8 @@ def test_example_imports_only_the_port(script):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
-    assert roots <= {"argparse", "json", "os", "sys", "numpy", "torch", "pyqmd_tpu_torch"}, roots
+    assert roots <= {"argparse", "json", "math", "os", "socket", "sys", "numpy", "torch",
+                     "pyqmd_tpu_torch"}, roots
     assert "pyqmd_tpu_torch" in roots
     assert '"cpu" if args.cpu else "cuda"' in src
 
@@ -158,6 +160,18 @@ def test_leapfrog_accuracy_prints_the_reference_table(runs):
     np.testing.assert_allclose(rows[:, 2], ref_rows[:, 2], rtol=0, atol=1e-6)
     assert drift["euler"] == pytest.approx(ref_drift["euler"], rel=1e-4)
     assert drift["leapfrog"] == pytest.approx(ref_drift["leapfrog"], abs=1e-6)
+
+
+def test_sharded_survival_prints_the_reference_fit(runs):
+    """8 gloo ranks x 64 members against the JAX original's 8 virtual
+    devices x 64: the same 512 members, so the same survival and fit, line
+    for line; only the backend word of the first line differs."""
+    out, ref = runs("sharded_survival.py")[0], runs("sharded_survival.py", "examples")[0]
+    lines, ref_lines = out.strip().splitlines(), ref.strip().splitlines()
+    assert lines[0] == "512 C-14 nuclei over 8 devices (gloo)"
+    assert ref_lines[0] == "512 C-14 nuclei over 8 devices (cpu)"
+    assert lines[1:] == ref_lines[1:] and len(lines) == 3
+    assert lines[1].startswith("survival after 2 T1/2: ")
 
 
 @pytest.mark.parametrize("script", ["mixed_population.py", "decay_chain_movie.py"])

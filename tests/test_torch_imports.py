@@ -56,8 +56,6 @@ _PROBE = textwrap.dedent(
                    "render.png", "render.gif", "render.ansi", "render.interactive",
                    "render.httpview"):
         assert "pyqmd_tpu_torch." + needed in names, needed
-    for later in ("parallel",):
-        assert "pyqmd_tpu_torch." + later not in names, later
     with tempfile.TemporaryDirectory() as tmp:
         ck, png = os.path.join(tmp, "c.npz"), os.path.join(tmp, "c.png")
         assert cli.main(["--device", "cpu", "--isotope", "C-14", "--frames", "2", "-q", "--save", ck,
@@ -88,6 +86,34 @@ _PROBE = textwrap.dedent(
                    if sys.modules[m] is not None)
     assert force_step.launches == 0 and overlap_step.launches == 0
     assert _build.library.cache_info().currsize == 0
+
+    # The sharded path in a world of one on the CPU: a fused run, the ring
+    # frame and a sharded checkpoint, with jax still blocked.
+    for needed in ("parallel", "parallel.mesh", "parallel.multihost", "parallel.ensemble",
+                   "parallel.ring", "parallel.hybrid"):
+        assert "pyqmd_tpu_torch." + needed in names, needed
+    import torch.distributed as dist
+    from pyqmd_tpu_torch import init_state, parallel
+    from pyqmd_tpu_torch.utils.checkpoint import load_checkpoint_sharded, save_checkpoint_sharded
+    assert len(parallel.__all__) == 15 and not dist.is_initialized()
+    c14 = SimConfig.for_isotope(6, 8, pad_to=8)
+    mesh = parallel.make_mesh(device="cpu")
+    assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+    part = parallel.shard_ensemble(ensemble_init(c14, 8, device="cpu"), mesh)
+    part, m = parallel.make_sharded_run_fn(c14, 2, 2, mesh)(part, 1e11, 1.0)
+    assert int(m["survivors"]) <= 8 and int(m["total_alive"]) == int(part.alive.sum())
+    ring = parallel.make_ring_frame_fn(c14, 2, parallel.make_mesh((1,), ("model",), device="cpu"))
+    assert ring(init_state(c14, device="cpu"), 1e11, 1.0)[0].pos.shape == (1, 16, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint_sharded(tmp, part, c14, mesh)
+        back, _ = load_checkpoint_sharded(tmp, part, mesh)
+        assert torch.equal(back.rng, part.rng) and torch.equal(back.alive, part.alive)
+    dist.destroy_process_group()
+    assert "pyqmd_tpu" not in sys.modules and "triton" not in sys.modules
+    assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules
+                   if sys.modules[m] is not None)
+    assert force_step.launches == 0 and overlap_step.launches == 0
+    assert _build.library.cache_info().currsize == 0
     print("MODULES", len(names))
     """
 )
@@ -99,5 +125,6 @@ def test_port_imports_without_jax_and_builds_nothing():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split("MODULES")[1])
-    # config, state, prng, analysis, data/*, core/*, kernels/*, sim, cli, utils/*, render/*
-    assert n_modules >= 37
+    # config, state, prng, analysis, data/*, core/*, kernels/*, sim, cli, utils/*, render/*,
+    # parallel/*
+    assert n_modules >= 43
