@@ -9,8 +9,9 @@ nonzero, and nothing catches it:
 1. device and build: the card's name and power limit, and the nvcc build
    of ``pyqmd_tpu_torch/csrc`` with its time and ptxas report;
 2. the force kernels against their plain PyTorch version, one step: the
-   tiled kernel on U-238 (P=256), unaligned P=100 and P=33, a dense cluster
-   and P=2000, the sub-warp kernel on P = 2, 5, 8 (He-4), 16, 20 and 32
+   tiled kernel on U-238 (P=256), unaligned P=100 and P=33, a dense cluster,
+   P=600 (static and dynamic shared memory just past 48 KB) and P=2000, the
+   sub-warp kernel on P = 2, 5, 8 (He-4), 16, 20 and 32
    (the capacity alone picks it), Euler and leapfrog, exact (rtol = atol =
    1e-4) and fast-math (atol 5e-3), and two launches on the same input
    bitwise equal;
@@ -120,7 +121,24 @@ nonzero, and nothing catches it:
     frame's (the ring's hop is tensor code, as in the reference; the
     overlap kernel still runs); then
     ``examples_torch/sharded_survival.py`` as a subprocess on its default
-    device. The group is destroyed at the end of the phase.
+    device. The group is destroyed at the end of the phase;
+18. the compiled frame buckets (``pyqmd_tpu_torch/core/graphs.py``) on
+    fresh factories, for U-238 and He-4 at 10240 nuclei and one U-238
+    nucleus: the first call (the eager frame, returned, and the capture),
+    then five replays bitwise the eager frames (every field and metric)
+    at 1e9 years per second, then 1e7, then a frame interval of 1/30 s,
+    with one capture; launch counters equal to eager's; a replay and three
+    ``Simulation.frame()`` calls with PyTorch's synchronisation check
+    raising; ``make_run_fn(3)`` twice, bitwise three eager frames each;
+    then ms per frame in turns (eager, graph, ``frame()``, graph, eager),
+    the card's idle share over three profiled graph frames, the capture's
+    seconds, the replay and the copies in and out on the card's clock,
+    and the bytes of the graphs' shared memory pool.
+
+Phases 4, 9, 10 and 14-17 call the frame factories, so they run on the
+graphs too; a bucket's first call captures, which synchronises the card,
+so the sync checks of phase 9 and the stream of phase 15 take their
+buckets' first calls before them.
 
 A kernel's bound is the least time the card could take for the same work,
 from this run's inputs: the larger of the bytes it must move (each input
@@ -176,14 +194,15 @@ from pyqmd_tpu_torch import (
     load_checkpoint,
     make_decay_frame_fn,
     make_frame_fn,
+    make_run_fn,
     mixed_ensemble_init,
     prng,
 )
 from pyqmd_tpu_torch.core import decay as plain_decay
 from pyqmd_tpu_torch.core import forces as plain_forces
 from pyqmd_tpu_torch.core import overlap as plain_overlap
-from pyqmd_tpu_torch.core import step
-from pyqmd_tpu_torch.core.dynamics import FrameDynamics
+from pyqmd_tpu_torch.core import graphs, step
+from pyqmd_tpu_torch.core.dynamics import FrameDynamics, frame_dynamics, scalar_values
 from pyqmd_tpu_torch.frame_profile import device_ms
 from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
@@ -358,6 +377,8 @@ def phase_force_kernel() -> float:
         ("p33", SimConfig.for_isotope(15, 18, pad_to=33), 33, 101, 25.0, 0.9),
         ("he4", SimConfig.for_isotope(2, 2, pad_to=8), 8, 1037, 12.0, 0.7),
         ("dense", SimConfig.for_isotope(40, 50, pad_to=128), 128, 16, 4.0, 0.5),
+        # static and dynamic shared memory together just past 48 KB
+        ("p600", SimConfig.for_isotope(92, 146, pad_to=600), 600, 5, 100.0, 0.9),
         ("p2000", SimConfig.for_isotope(92, 146, pad_to=2000), 2000, 4, 150.0, 0.9),
     ]
     # The sub-warp kernel's capacities; B * next_pow2(P) is not a multiple
@@ -416,6 +437,7 @@ def phase_overlap_kernel() -> float:
         ("p20", SimConfig.for_isotope(2, 2, pad_to=8), 20, 333, 6.0, 0.85),
         ("dense", SimConfig.for_isotope(40, 50, pad_to=128), 128, 16, 4.0, 0.5),
         ("coincident", SimConfig.for_isotope(2, 2, pad_to=128), 128, 16, 4.0, 0.0),
+        ("p600", SimConfig.for_isotope(92, 146, pad_to=600), 600, 5, 60.0, 0.9),
         ("p2000", SimConfig.for_isotope(92, 146, pad_to=2000), 2000, 4, 150.0, 0.9),
     ]
     for name, cfg, p, b, spread, frac in cases:
@@ -479,9 +501,12 @@ def phase_slice(smi: str) -> list:
     sub = slice(0, SUB_B)
     pos, vel, ptype, alive = states.pos, states.vel, states.ptype, states.alive
     u = torch.rand(pos.shape[:2], device=DEV, generator=torch.Generator(DEV).manual_seed(0)) * 6.0
-    k_force_full = device_ms(lambda: force_step(pos, vel, ptype, alive, DT, cfg), DEV, 20)
+    # dt as the frame passes it, a 0-d tensor on the card: a float would
+    # add a fill launch to every timed call.
+    dt = torch.full((), DT, device=DEV)
+    k_force_full = device_ms(lambda: force_step(pos, vel, ptype, alive, dt, cfg), DEV, 20)
     k_force = device_ms(
-        lambda: force_step(pos[sub], vel[sub], ptype[sub], alive[sub], DT, cfg), DEV, 20
+        lambda: force_step(pos[sub], vel[sub], ptype[sub], alive[sub], dt, cfg), DEV, 20
     )
     p_force = device_ms(
         lambda: plain_forces.force_step(pos[sub], vel[sub], ptype[sub], alive[sub], DT, cfg), DEV, 5
@@ -564,7 +589,8 @@ def phase_he4_slice(smi: str) -> dict:
           "total_alive": int(metrics["total_alive"]), "card": smi})
 
     pos, vel, ptype, alive = states.pos, states.vel, states.ptype, states.alive
-    k_ms = device_ms(lambda: force_step(pos, vel, ptype, alive, DT, cfg), DEV, 50)
+    dt = torch.full((), DT, device=DEV)  # as the frame passes it (phase 4)
+    k_ms = device_ms(lambda: force_step(pos, vel, ptype, alive, dt, cfg), DEV, 50)
     p_ms = device_ms(lambda: plain_forces.force_step(pos, vel, ptype, alive, DT, cfg), DEV, 5)
     err = max(max_diff(a, b) for a, b in zip(force_step(pos, vel, ptype, alive, DT, cfg),
                                              plain_forces.force_step(pos, vel, ptype, alive,
@@ -574,7 +600,7 @@ def phase_he4_slice(smi: str) -> dict:
 
     big = ensemble_init(cfg, HE4_BIG_B, seed=1, device=DEV)
     bp, bv, bt, ba = big.pos, big.vel, big.ptype, big.alive
-    k_big = device_ms(lambda: force_step(bp, bv, bt, ba, DT, cfg), DEV, 20)
+    k_big = device_ms(lambda: force_step(bp, bv, bt, ba, dt, cfg), DEV, 20)
     big_err = max(max_diff(a, b) for a, b in zip(force_step(bp, bv, bt, ba, DT, cfg),
                                                  plain_forces.force_step(bp, bv, bt, ba, DT,
                                                                          cfg)))
@@ -1023,8 +1049,11 @@ def phase_sim_ensemble(smi: str, z: int, n: int, pad_to: int) -> dict:
     probe = Simulation(z=z, n=n, ensemble=SLICE_B, pad_to=pad_to, seed=2, device=DEV)
     probe.set_preset("billion")
     probe.nan_check_interval = 0
-    # The first picture on a device copies the colour and label tables there.
+    # The first picture on a device copies the colour and label tables there,
+    # and the first fused run of two frames captures its graph, which waits
+    # for the card.
     render_frame(probe.state, (400.0, 400.0), 15.0, 160, 120)
+    probe.run(2, fused=True)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1501,7 +1530,12 @@ def phase_viewer(smi: str) -> dict:
                max(len(readers[0]), len(readers[1])) / STREAM_SECONDS,
            "launches": launches, "status": decayed, "card": smi}
 
-    # He-4 (P=8): the viewer's frames run the sub-warp force kernel.
+    # He-4 (P=8): the viewer's frames run the sub-warp force kernel. A lone
+    # He-4 nucleus's first frame captures its graph (a third of a second),
+    # so another Simulation of the same bucket takes that frame first.
+    warm = Simulation(z=2, n=2, seed=1, pad_to=8, device=DEV)
+    warm.set_preset("billion")
+    warm.frame()
     he4 = Simulation(z=2, n=2, seed=0, pad_to=8, device=DEV)
     he4.set_preset("billion")
     server = LiveViewServer(he4, port=0, fps=30, width=800, height=600)
@@ -1862,6 +1896,206 @@ def phase_sharded(smi: str) -> dict:
     return launches
 
 
+GRAPH_CASES = (("U-238", (92, 146), 128, SLICE_B), ("He-4", (2, 2), 8, SLICE_B),
+               ("U-238 nucleus", (92, 146), 128, 1))
+GRAPH_TURN_FRAMES = 5  # frames per turn of the timing (eager, graph, frame(), graph, eager)
+
+
+def _pool_bytes() -> int:
+    """Bytes the card holds for the shared memory pool of the graphs."""
+    pool = tuple(graphs.shared(DEV).pool)
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == pool)
+
+
+def _counts() -> tuple:
+    return (force_step.launches, force_step.small_launches, overlap_step.launches)
+
+
+def _graph_case(name, zn, pad_to, b, capture_s: list, smi: str) -> dict:
+    """One case of phase 18; see :func:`phase_graphs`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step.make_frame_fn.cache_clear()
+    step.make_run_fn.cache_clear()
+    cfg = SimConfig.for_isotope(*zn, pad_to=pad_to)
+    batched = b > 1
+    bare = step.ensemble_step if batched else step.simulate_frame
+    fn = make_frame_fn(cfg, 20, batched)
+    init = ensemble_init(cfg, b, seed=11, device=DEV)
+
+    def eager(st, ts=TIME_SCALE, fdt=FRAME_DT):
+        return bare(st, cfg, ts, fdt, 20, cfg.effective_dt(), cfg.physics_dt)
+
+    # The first call: the eager warm-up frame, returned, and the capture.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_st, _ = fn(init, TIME_SCALE, FRAME_DT)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    assert fn.graphs.captures == 1 and len(capture_s) == 1, capture_s
+    e_st, _ = eager(init)
+    _states_equal(g_st, e_st, f"{name} first call")
+    pool_after_frame = _pool_bytes()
+
+    # Replays against eager frames, every field and metric bitwise: three
+    # at 1e9 years per second, then 1e7 years per second, then 1/30 s.
+    calls = [(TIME_SCALE, FRAME_DT)] * 3 + [(TIME_SCALE / 100, FRAME_DT), (TIME_SCALE, 1 / 30)]
+    per_frame = None
+    for i, (ts, fdt) in enumerate(calls):
+        before = _counts()
+        e_st, em = eager(e_st, ts, fdt)
+        eager_counts = [a - c for a, c in zip(_counts(), before)]
+        before = _counts()
+        if i == 0:
+            with no_synchronising_call():
+                g_st, gm = fn(g_st, ts, fdt)
+        else:
+            g_st, gm = fn(g_st, ts, fdt)
+        graph_counts = [a - c for a, c in zip(_counts(), before)]
+        assert graph_counts == eager_counts, (name, i, graph_counts, eager_counts)
+        _states_equal(g_st, e_st, f"{name} replay {i}")
+        assert set(gm) == set(em) and all(torch.equal(gm[k], em[k]) for k in em), (name, i)
+        per_frame = graph_counts
+    assert fn.graphs.captures == 1 and len(capture_s) == 1, (name, capture_s)
+    assert per_frame[0] == 20 and per_frame[2] == 1, per_frame
+    assert per_frame[1] == (20 if cfg.max_particles <= SMALL_MAX_PARTICLES else 0), per_frame
+
+    # The fused run of three frames: its first call (the eager frame, the
+    # capture, two replays), then three replays; each against three eager
+    # frames.
+    run = make_run_fn(cfg, 20, 3, batched)
+    r_st = g_st
+    fused_ms = []
+    for _ in range(2):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_st, rm = run(r_st, TIME_SCALE, FRAME_DT)
+        torch.cuda.synchronize()
+        fused_ms.append((time.perf_counter() - t0) / 3 * 1e3)
+        run_counts = [a - c for a, c in zip(_counts(), before)]
+        for _ in range(3):
+            e_st, em = eager(e_st)
+        _states_equal(r_st, e_st, f"{name} fused run")
+        assert all(torch.equal(rm[k], em[k]) for k in em), name
+        assert run_counts == [3 * c for c in per_frame], (run_counts, per_frame)
+    assert run.graphs.captures == 1 and len(capture_s) == 2, capture_s
+    pool_after_run = _pool_bytes()
+
+    # Simulation.frame() on the graphs, after its own first frame (and a
+    # drain of the lone nucleus's decay log, which reads the card).
+    sim = Simulation(z=zn[0], n=zn[1], ensemble=b if batched else None, pad_to=pad_to, seed=12,
+                     device=DEV)
+    sim.set_preset("billion")
+    sim.nan_check_interval = 0
+    sim.frame()
+    sim.decay_log
+    torch.cuda.synchronize()
+    with no_synchronising_call():
+        for _ in range(3):
+            sim.frame()
+    assert sim.substeps_used == 20
+
+    # ms per frame in turns: eager, graph, frame(), graph, eager.
+    def loop(frame_fn, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TURN_FRAMES):
+            st, _ = frame_fn(st)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / GRAPH_TURN_FRAMES * 1e3, st
+
+    def sim_loop():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TURN_FRAMES):
+            sim.frame()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / GRAPH_TURN_FRAMES * 1e3
+
+    def graph_frame(st):
+        return fn(st, TIME_SCALE, FRAME_DT)
+
+    eager_ms, graph_ms, sim_ms = [], [], []
+    st = e_st
+    for turn in ("eager", "graph", "sim", "graph", "eager"):
+        if turn == "sim":
+            sim_ms.append(sim_loop())
+            continue
+        ms, st = loop(eager if turn == "eager" else graph_frame, st)
+        (eager_ms if turn == "eager" else graph_ms).append(ms)
+
+    # One profiled window of three graph frames: the card's busy time.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            st, _ = graph_frame(st)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    idle = 1.0 - busy_ms / window_ms if events else None
+
+    # The replay alone, and the copies around it, on the card's clock.
+    graph = next(iter(fn.graphs.graphs.values()))
+    values = scalar_values(frame_dynamics(cfg, TIME_SCALE, FRAME_DT, 20, cfg.effective_dt(),
+                                          cfg.physics_dt), cfg)[0]
+    copy_in_ms = device_ms(lambda: graph.copy_in(st, values), DEV, 5)
+    replay_ms = device_ms(graph.graph.replay, DEV, 5)
+    copy_out_ms = device_ms(lambda: graph.copy_out(st), DEV, 5)
+    state_bytes = sum(getattr(st, f.name).nbytes for f in dataclasses.fields(st))
+    return {"phase": "graphs", "case": name, "B": b, "P": cfg.max_particles, "substeps": 20,
+            "replays_bitwise_eager": len(calls), "time_scales": sorted({c[0] for c in calls}),
+            "frame_dts": sorted({c[1] for c in calls}), "fused_run_bitwise_eager": 2,
+            "captures_frame_fn": fn.graphs.captures, "captures_run_fn": run.graphs.captures,
+            "launches_per_frame": dict(zip(("force_step", "force_step_small", "overlap_step"),
+                                           per_frame)),
+            "synchronising_calls_in_a_replay": 0, "synchronising_calls_in_3_sim_frames": 0,
+            "eager_ms_per_frame": eager_ms, "graph_ms_per_frame": graph_ms,
+            "sim_frame_ms_per_frame": sim_ms,
+            "fused_run_of_3_ms_per_frame_first_call_and_second": fused_ms,
+            "first_call_s": first_call_s,
+            "capture_s": list(capture_s), "profiled_window_ms": window_ms,
+            "profiled_device_events": len(events), "profiled_busy_ms": busy_ms,
+            "idle_share": idle, "replay_device_ms": replay_ms, "copy_in_ms": copy_in_ms,
+            "copy_out_ms": copy_out_ms, "state_bytes": state_bytes,
+            "pool_bytes_after_frame_capture": pool_after_frame,
+            "pool_bytes_after_run_capture": pool_after_run, "card": smi}
+
+
+def phase_graphs(smi: str) -> None:
+    """The compiled frame buckets: for U-238 and He-4 at 10240 nuclei and
+    one U-238 nucleus, on fresh factories, the first call (the eager frame
+    and the capture), five replays against eager frames bitwise across a
+    time scale of 1e7 years per second and a frame interval of 1/30 s with
+    one capture, the launch counters equal to eager's, a replay and three
+    ``Simulation.frame()`` calls with PyTorch's synchronisation check set
+    to raise, ``make_run_fn(3)`` against three eager frames twice; then ms
+    per frame in turns, the card's idle share over three profiled graph
+    frames, the capture's seconds, the replay and copy times on the card's
+    clock and the memory pool's bytes."""
+    record = graphs._record
+    for name, zn, pad_to, b in GRAPH_CASES:
+        capture_s = []
+
+        def timed_record(fn, dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph = record(fn, dev)
+            torch.cuda.synchronize()
+            capture_s.append(time.perf_counter() - t0)
+            return graph
+
+        graphs._record = timed_record
+        try:
+            emit(_graph_case(name, zn, pad_to, b, capture_s, smi))
+        finally:
+            graphs._record = record
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1899,6 +2133,7 @@ def main() -> int:
     view = timed("15 viewer", phase_viewer, smi)
     view_decay_launches = timed("16 live CLI and examples", phase_cli_live_and_examples, smi)
     sharded = timed("17 sharded path, world of one", phase_sharded, smi)
+    timed("18 graphs", phase_graphs, smi)
     by_name = {k["name"]: k for k in kernels}
     by_name["force"]["sim_launches"] = u238["force_step"]
     by_name["overlap"]["sim_launches"] = u238["overlap_step"] + he4["overlap_step"]

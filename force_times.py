@@ -10,6 +10,8 @@ unpack the other commit with ``git archive`` under ``.checkouts/`` (which
 with this tree (other, this, this, other). Each size is timed as the mean
 of 20 calls of ``kernels.forces.force_step`` on a fresh ensemble from seed
 0, the card held busy while the calls queue (``frame_profile.device_ms``).
+A tree whose kernel reads dt from device memory gets dt as the frame
+passes it, a 0-d tensor on the card; an older tree's takes a float.
 Prints the card's name and power limit, then one JSON line per size.
 Without a CUDA device it exits nonzero and prints no result.
 """
@@ -17,6 +19,7 @@ Without a CUDA device it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -42,6 +45,7 @@ def main(argv: list[str]) -> int:
 
     from pyqmd_tpu_torch import SimConfig, ensemble_init
     from pyqmd_tpu_torch.frame_profile import device_ms
+    from pyqmd_tpu_torch.kernels import _build
     from pyqmd_tpu_torch.kernels.forces import force_step
 
     if not torch.cuda.is_available():
@@ -53,13 +57,15 @@ def main(argv: list[str]) -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda:0")
+    by_pointer = _build.library().pyqmd_force_step.argtypes[8] is ctypes.c_void_p
+    dt = torch.full((), DT, device=dev) if by_pointer else DT
     for isotope, (z, n), pad_to, batch in SIZES:
         cfg = SimConfig.for_isotope(z, n, pad_to=pad_to)
         st = ensemble_init(cfg, batch, seed=0, device=dev)
         before, small_before = force_step.launches, getattr(force_step, "small_launches", None)
-        ms = device_ms(lambda: force_step(st.pos, st.vel, st.ptype, st.alive, DT, cfg), dev, 20)
+        ms = device_ms(lambda: force_step(st.pos, st.vel, st.ptype, st.alive, dt, cfg), dev, 20)
         print(json.dumps({"tree": str(tree), "isotope": isotope, "B": batch,
-                          "P": cfg.max_particles, "ms_per_call": ms,
+                          "P": cfg.max_particles, "ms_per_call": ms, "dt_by_pointer": by_pointer,
                           "launches": force_step.launches - before,
                           "small_kernel_launches": None if small_before is None
                           else force_step.small_launches - small_before,

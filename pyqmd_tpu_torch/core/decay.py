@@ -27,7 +27,7 @@ import torch
 
 from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.config import SimConfig
-from pyqmd_tpu_torch.core.dynamics import FrameDynamics
+from pyqmd_tpu_torch.core.dynamics import FrameDynamics, as_scalars
 from pyqmd_tpu_torch.data import tables
 from pyqmd_tpu_torch.state import (
     ALPHA,
@@ -69,38 +69,31 @@ def _lut(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
     return tables.on_device(table, idx.device)[idx.to(torch.int64)]
 
 
-def decay_probability(half_life: torch.Tensor, dt: np.float32) -> torch.Tensor:
+def decay_probability(half_life: torch.Tensor, dt) -> torch.Tensor:
     """Dual-regime decay probability (particles.py:126-147): exact
     ``1 - 0.5**(dt/T)`` when dt is large relative to the half-life,
     linearised ``0.693/T * dt`` otherwise, clamped to [0, 1]; stable
-    nuclei (T = inf) never decay."""
-    dt = float(dt)
+    nuclei (T = inf) never decay. ``dt`` is an f32 scalar or a 0-d f32
+    tensor on ``half_life``'s device."""
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=half_life.device)
     hl = torch.clamp(half_life, min=1e-30)
-    big = 1.0 - tables.exp2(torch.full_like(hl, -dt) / hl)
+    big = 1.0 - tables.exp2(torch.neg(dt) / hl)
     small = torch.full_like(hl, LN2_REF) / hl * dt
     p = torch.where(dt > hl * 0.01, big, small)
     p = torch.clamp(p, 0.0, 1.0)
     return torch.where(torch.isinf(half_life), 0.0, p)
 
 
-def ejecta_lifetime(frag_type: torch.Tensor, dyn: FrameDynamics, cfg: SimConfig):
+def ejecta_lifetime(frag_type: torch.Tensor, dyn, cfg: SimConfig):
     """Ejecta lifetime with the reference's time-scale/substep/dt
-    compensation (nuclear_sim.py:315-342)."""
-    base = cfg.base_ejecta_lifetime
-    ts, ss = dyn.time_scale, dyn.substeps
-    # The dt factor reads the raw physics dt (nuclear_sim.py:327).
-    pdt = dyn.raw_physics_dt if dyn.raw_physics_dt is not None else dyn.physics_dt
-    if ts > 1.0:
-        tf = np.maximum(np.float32(1.0), ts / np.float32(100.0))
-        sf = np.maximum(np.float32(1.0), np.sqrt(ss))
-        df = np.maximum(np.float32(1.0), np.float32(0.016) / pdt)
-        fast = np.maximum(base * sf, base * tf * sf * df)
-        if ss > 15.0:
-            fast = fast * (ss / np.float32(15.0))
-        return torch.full(frag_type.shape, float(fast), device=frag_type.device)
-    # Slow/real-time branch: at least the per-type base lifetime.
-    floor = float(base * np.maximum(np.float32(1.0), ss / np.float32(5.0)))
-    return torch.clamp(_lut(BASE_LIFETIMES, frag_type), min=floor)
+    compensation (nuclear_sim.py:315-342), from the frame's
+    :class:`FrameScalars` (or its :class:`FrameDynamics`): one lifetime
+    for every fragment where ``time_scale > 1``, else at least the
+    per-type base lifetime."""
+    sc = as_scalars(dyn, cfg, frag_type.device)
+    if sc.fast_lifetimes:
+        return sc.ejecta_life.expand(frag_type.shape)
+    return torch.maximum(_lut(BASE_LIFETIMES, frag_type), sc.ejecta_life)
 
 
 def _first_rank_masks(alive: torch.Tensor, ptype: torch.Tensor):
@@ -418,7 +411,9 @@ def maybe_decay_from_u(
     stats_only: bool = False,
     packed_nucleons=None,
 ):
-    """:func:`maybe_decay` over pre-drawn uniforms ``u`` (B, 1 + draws)."""
+    """:func:`maybe_decay` over pre-drawn uniforms ``u`` (B, 1 + draws);
+    ``dyn`` the frame's :class:`FrameScalars` or :class:`FrameDynamics`."""
+    dyn = as_scalars(dyn, cfg, u.device)
     p = decay_probability(state.half_life, dyn.step_time)
     did = u[:, 0] < p
     return _apply_decay_from_draws(

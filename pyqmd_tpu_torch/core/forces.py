@@ -129,7 +129,8 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig, *, max_chunk=8192):
     """One force + integrate substep (nuclear_forces.py:156-171) over a
     batch: pos/vel (B, P, 2), ptype/alive (B, P). Semi-implicit Euler
     ``v += F·dt; v *= damping; x += v·dt`` or leapfrog per
-    ``cfg.integrator``. Dead slots pass through unchanged.
+    ``cfg.integrator``, ``dt`` a float or a 0-d f32 tensor on the batch's
+    device (the same bits either way). Dead slots pass through unchanged.
 
     Batches above ``max_chunk`` run in ``chunk_plan`` chunks, bounding the
     (chunk, P, P) pair temporaries."""
@@ -142,7 +143,8 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig, *, max_chunk=8192):
             for s in range(0, b, chunk)
         ]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
-    dt = float(dt)
+    if not isinstance(dt, torch.Tensor):
+        dt = float(dt)
     if cfg.integrator == "leapfrog":
         return _leapfrog_step(pos, vel, ptype, alive, dt, cfg)
     force = compute_forces(pos, ptype, alive, cfg)
@@ -152,7 +154,7 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig, *, max_chunk=8192):
     return torch.where(m, new_pos, pos), torch.where(m, new_vel, vel)
 
 
-def _leapfrog_step(pos, vel, ptype, alive, dt: float, cfg: SimConfig):
+def _leapfrog_step(pos, vel, ptype, alive, dt, cfg: SimConfig):
     """Velocity-Verlet (kick-drift-kick): two force evaluations, damping
     once at the end."""
     f1 = compute_forces(pos, ptype, alive, cfg)

@@ -8,58 +8,56 @@ substeps in one kernel call. The force, overlap and decay passes go through
 the kernel wrappers, which take the plain PyTorch version for CPU tensors
 and the CUDA kernel for CUDA tensors.
 
-The frame's scalars are computed in f32 in the JAX package's order, and
-every draw follows its key tree (``core/step.py:268-289`` there), so
-integer fields and RNG streams equal the reference's bitwise.
+The frame's scalars are computed in f32 in the JAX package's order
+(:mod:`pyqmd_tpu_torch.core.dynamics`) and reach the ops as 0-d tensors on
+the state's device, and every draw follows its key tree
+(``core/step.py:268-289`` there), so integer fields and RNG streams equal
+the reference's bitwise. :func:`make_frame_fn` and :func:`make_run_fn`
+replay a CUDA graph of :func:`frame_body` per bucket on the card
+(:mod:`pyqmd_tpu_torch.core.graphs`) and run it eagerly on the CPU.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import functools
+
 import torch
 
 from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core.decay import maybe_decay, pack_nucleon_bits, unpack_alive_ptype
-from pyqmd_tpu_torch.core.dynamics import FrameDynamics
+from pyqmd_tpu_torch.core.dynamics import (
+    FrameDynamics,
+    FrameScalars,
+    as_scalars,
+    frame_dynamics,
+    frame_scalars,
+)
+from pyqmd_tpu_torch.core.graphs import FrameGraphs
 from pyqmd_tpu_torch.core.overlap import _rand_u
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 from pyqmd_tpu_torch.state import ALPHA, NucleusState
 
-_F32 = np.float32
 
-
-def advance_ejecta(state: NucleusState, cfg: SimConfig, dyn: FrameDynamics) -> NucleusState:
+def advance_ejecta(state: NucleusState, cfg: SimConfig, dyn) -> NucleusState:
     """Ejecta advection + ageing + expiry (nuclear_sim.py:178-210).
 
     Animated decay products (alpha/e-/gamma/e+) move at a fixed animation
     timestep with substep-compensated speed and age with the reference's
     time-scale-damped rate; emitted nucleons advect with
-    ``dt * sqrt(time_scale)`` and never expire.
+    ``dt * sqrt(time_scale)`` and never expire. ``dyn`` is the frame's
+    :class:`FrameScalars` or its :class:`FrameDynamics`.
     """
+    sc = as_scalars(dyn, cfg, state.ej_pos.device)
     is_anim = state.ej_type >= ALPHA
-    substep_factor = _F32(10.0) / np.maximum(_F32(1.0), dyn.substeps)
-    # The reference folds the two config constants in float64 first.
-    anim_step = (cfg.animation_dt * cfg.ejecta_speed_scale) * substep_factor
-    nucleon_step = dyn.physics_dt * np.sqrt(dyn.time_scale)
-    step = torch.where(is_anim, float(anim_step), float(nucleon_step))
+    step = torch.where(is_anim, sc.anim_step, sc.nucleon_step)
 
     live = state.ej_alive
     new_pos = state.ej_pos + state.ej_vel * torch.where(live, step, 0.0)[..., None]
 
-    aging_scale = np.minimum(
-        _F32(1.0),
-        _F32(1.0)
-        / (
-            np.sqrt(np.maximum(_F32(1.0), dyn.time_scale / _F32(100.0)))
-            * np.sqrt(np.maximum(_F32(1.0), dyn.substeps / _F32(10.0)))
-        ),
-    )
-    age_inc = torch.where(
-        is_anim, float(dyn.step_time * aging_scale), float(dyn.step_time)
-    )
+    age_inc = torch.where(is_anim, sc.anim_age_inc, sc.step_time)
     new_age = state.ej_age + torch.where(live, age_inc, 0.0)
     expired = is_anim & (new_age >= state.ej_life)
     return state.replace(ej_pos=new_pos, ej_age=new_age, ej_alive=live & ~expired)
@@ -115,6 +113,12 @@ def _batched_overlap(pos, alive, keys, cfg: SimConfig):
     return pos
 
 
+def _advance_clock(states: NucleusState, sc: FrameScalars) -> NucleusState:
+    """time_passed advances at frame start (nuclear_sim.py:124), so every
+    substep's decay record sees the same frame clock."""
+    return states.replace(time_passed=states.time_passed + sc.desired_dt)
+
+
 def _frame_clock(
     states: NucleusState,
     cfg: SimConfig,
@@ -124,24 +128,16 @@ def _frame_clock(
     physics_dt,
     raw_physics_dt,
 ) -> tuple[NucleusState, FrameDynamics]:
-    """Clock advance and :class:`FrameDynamics`, host scalars in f32."""
-    time_scale = _F32(time_scale)
-    frame_dt = _F32(frame_dt)
-    if physics_dt is None:
-        physics_dt = cfg.effective_dt()
-    desired_dt = frame_dt * time_scale
-    # time_passed advances at frame start (nuclear_sim.py:124), so every
-    # substep's decay record sees the same frame clock.
-    states = states.replace(time_passed=states.time_passed + float(desired_dt))
+    """Clock advance and the frame's :class:`FrameDynamics` (host f32)."""
+    dyn = frame_dynamics(cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt)
+    return _advance_clock(states, frame_scalars(dyn, cfg, states.time_passed.device)), dyn
 
-    dyn = FrameDynamics(
-        time_scale=time_scale,
-        substeps=_F32(num_steps),
-        physics_dt=_F32(physics_dt),
-        step_time=desired_dt / _F32(num_steps),
-        raw_physics_dt=None if raw_physics_dt is None else _F32(raw_physics_dt),
-    )
-    return states, dyn
+
+def _key_tree(rng: torch.Tensor, num_steps: int):
+    """The per-nucleus key tree: base key → 3-way split (substeps,
+    overlap, next) → per-substep keys (S, B, 2)."""
+    k3 = prng.split(rng, 3)  # (B, 3, 2)
+    return k3, prng.split(k3[:, 0], num_steps).transpose(0, 1)
 
 
 def _batched_frame_preamble(
@@ -153,14 +149,45 @@ def _batched_frame_preamble(
     physics_dt,
     raw_physics_dt,
 ):
-    """:func:`_frame_clock` and the per-nucleus key tree: base key → 3-way
-    split (substeps, overlap, next) → per-substep keys."""
-    states, dyn = _frame_clock(
-        states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
-    )
-    k3 = prng.split(states.rng, 3)  # (B, 3, 2)
-    step_keys = prng.split(k3[:, 0], num_steps).transpose(0, 1)  # (S, B, 2)
-    return states, dyn, k3, step_keys
+    """The frame's :class:`FrameScalars`, the clock advance and the key
+    tree: ``(states, scalars, k3, step_keys)``."""
+    dyn = frame_dynamics(cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt)
+    sc = frame_scalars(dyn, cfg, states.pos.device)
+    states = _advance_clock(states, sc)
+    return (states, sc, *_key_tree(states.rng, num_steps))
+
+
+def frame_body(
+    states: NucleusState,
+    cfg: SimConfig,
+    sc: FrameScalars,
+    num_steps: int,
+    force_step_fn=None,
+) -> NucleusState:
+    """The full-physics frame without its metrics: clock, key tree,
+    ``num_steps`` substeps and the overlap projection, every scalar read
+    from ``sc``. No op depends on a value of the frame's scalars, so a
+    CUDA graph of it replays at any time scale (:mod:`.graphs`).
+
+    ``force_step_fn`` replaces the force + integrate step, with the
+    signature of :func:`pyqmd_tpu_torch.kernels.forces.force_step`
+    ``(pos, vel, ptype, alive, dt, cfg)``, ``dt`` a 0-d tensor; the
+    particle-axis ring of :mod:`pyqmd_tpu_torch.parallel.ring` runs through
+    it while the rest of the frame stays replicated. ``None`` is the kernel
+    wrapper."""
+    fstep = force_step_fn or force_step
+    states = _advance_clock(states, sc)
+    k3, step_keys = _key_tree(states.rng, num_steps)
+    for s in range(num_steps):
+        states = advance_ejecta(states, cfg, sc)
+        states, _ = maybe_decay(states, cfg, step_keys[s], sc)
+        pos, vel = fstep(
+            states.pos, states.vel, states.ptype, states.alive, sc.physics_dt, cfg
+        )
+        states = states.replace(pos=pos, vel=vel)
+
+    pos = _batched_overlap(states.pos, states.alive, k3[:, 1], cfg)
+    return states.replace(pos=pos, rng=k3[:, 2].contiguous())
 
 
 def _frame_body(
@@ -173,28 +200,10 @@ def _frame_body(
     raw_physics_dt=None,
     force_step_fn=None,
 ) -> NucleusState:
-    """The full-physics frame without its metrics: clock, key tree,
-    ``num_steps`` substeps and the overlap projection.
-
-    ``force_step_fn`` replaces the force + integrate step, with the
-    signature of :func:`pyqmd_tpu_torch.kernels.forces.force_step`
-    ``(pos, vel, ptype, alive, dt, cfg)``; the particle-axis ring of
-    :mod:`pyqmd_tpu_torch.parallel.ring` runs through it while the rest of
-    the frame stays replicated. ``None`` is the kernel wrapper."""
-    fstep = force_step_fn or force_step
-    states, dyn, k3, step_keys = _batched_frame_preamble(
-        states, cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt
-    )
-    for s in range(num_steps):
-        states = advance_ejecta(states, cfg, dyn)
-        states, _ = maybe_decay(states, cfg, step_keys[s], dyn)
-        pos, vel = fstep(
-            states.pos, states.vel, states.ptype, states.alive, dyn.physics_dt, cfg
-        )
-        states = states.replace(pos=pos, vel=vel)
-
-    pos = _batched_overlap(states.pos, states.alive, k3[:, 1], cfg)
-    return states.replace(pos=pos, rng=k3[:, 2].contiguous())
+    """:func:`frame_body` at the given time scale and frame interval."""
+    dyn = frame_dynamics(cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt)
+    sc = frame_scalars(dyn, cfg, states.pos.device)
+    return frame_body(states, cfg, sc, num_steps, force_step_fn)
 
 
 def ensemble_step(
@@ -286,38 +295,67 @@ def simulate_frame(
     return state, state_metrics(state)
 
 
+def _metrics(states: NucleusState, batched: bool) -> dict:
+    return _ensemble_metrics(states) if batched else state_metrics(states)
+
+
+@functools.lru_cache(maxsize=128)
 def make_frame_fn(cfg: SimConfig, num_steps: int, batched: bool = False):
     """Frame function for a (config, substep-count) bucket, with the
     JAX package's call signature ``frame(state, time_scale, frame_dt,
-    physics_dt=..., raw_physics_dt=...)``."""
-    fn = ensemble_step if batched else simulate_frame
+    physics_dt=..., raw_physics_dt=...)``, cached as the JAX package caches
+    its jitted frame (128 buckets).
+
+    On the card the first call of each graph bucket (batch size, device,
+    whether ``raw_physics_dt`` is None, the ``time_scale > 1`` lifetime
+    regime) runs the frame eagerly and captures it in a CUDA graph; later
+    calls replay that graph at any time scale and frame interval, into
+    fresh tensors. On the CPU the frame runs eagerly. Either way the
+    result is bitwise :func:`ensemble_step`'s (or :func:`simulate_frame`'s).
+    The callable's ``graphs`` attribute is its
+    :class:`~pyqmd_tpu_torch.core.graphs.FrameGraphs`.
+    """
+    graphs = FrameGraphs(cfg, num_steps, frame_body,
+                         functools.partial(_metrics, batched=batched), frames=1,
+                         graph_metrics=True)
 
     def frame(state, time_scale, frame_dt, physics_dt=cfg.effective_dt(),
               raw_physics_dt=cfg.physics_dt):
-        return fn(state, cfg, time_scale, frame_dt, num_steps, physics_dt,
-                  raw_physics_dt)
+        if not batched and state.batch != 1:
+            raise ValueError(f"simulate_frame takes a batch of 1, got {state.batch}")
+        return graphs(state, time_scale, frame_dt, physics_dt, raw_physics_dt)
 
+    frame.graphs = graphs
     return frame
 
 
+@functools.lru_cache(maxsize=64)
 def make_run_fn(cfg: SimConfig, num_steps: int, num_frames: int, batched: bool = False):
     """Fused run for a (config, substep-count, frame-count) bucket:
-    ``num_frames`` whole frames dispatched back to back with no host
-    synchronisation between them, at a constant time scale.
+    ``num_frames`` whole frames back to back at a constant time scale,
+    with no host synchronisation between them (64 buckets cached).
+
+    On the card this is one host call per frame: the frame's CUDA graph
+    (captured without metrics, per graph bucket as in
+    :func:`make_frame_fn`) replayed ``num_frames`` times, then the metrics
+    once. The frames are not captured as one graph of ``num_frames``
+    frames, whose instantiation time would grow with the count. On the CPU
+    the frames run eagerly.
 
     Returns ``(state, metrics)`` with the metrics of the final state only:
     the frames in between run without theirs. The clock advances per
     frame, and the chain-log ring in the state keeps every event for the
     host to drain afterwards.
     """
+    graphs = FrameGraphs(cfg, num_steps, frame_body,
+                         functools.partial(_metrics, batched=batched), frames=num_frames,
+                         graph_metrics=False)
 
     def run(state, time_scale, frame_dt, physics_dt=cfg.effective_dt(),
             raw_physics_dt=cfg.physics_dt):
         if not batched and state.batch != 1:
             raise ValueError(f"a single-nucleus run takes a batch of 1, got {state.batch}")
-        for _ in range(num_frames):
-            state = _frame_body(state, cfg, time_scale, frame_dt, num_steps,
-                                physics_dt, raw_physics_dt)
-        return state, _ensemble_metrics(state) if batched else state_metrics(state)
+        return graphs(state, time_scale, frame_dt, physics_dt, raw_physics_dt)
 
+    run.graphs = graphs
     return run

@@ -49,6 +49,7 @@
 #include "block_reduce.cuh"
 #include "pair_math.cuh"
 #include "pair_tiles.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -159,12 +160,16 @@ __device__ float2 slot_force(int i, const float4& si, float2* buf, int T, int wa
   return make_float2(fx + scale * cdx, fy + scale * cdy);
 }
 
+// The fast kernel asks for five blocks per SM (at most 51 registers): with
+// dt read from device memory nvcc gave it 54 registers, four blocks per SM
+// and 2-4% more time at U-238 B=10240; with the bound it uses 48, as it did
+// with dt passed by value.
 template <bool kFast>
-__global__ void __launch_bounds__(kPqMaxWarps * 32)
+__global__ void __launch_bounds__(kPqMaxWarps * 32, kFast ? 5 : 1)
 force_step_kernel(const float2* __restrict__ pos, const float2* __restrict__ vel,
                   const int32_t* __restrict__ ptype, const uint8_t* __restrict__ alive,
                   float2* __restrict__ out_pos, float2* __restrict__ out_vel, int P,
-                  float dt, PqForceParams c) {
+                  const float* __restrict__ dt_ptr, PqForceParams c) {
   const int T = (P + 31) / 32;
   const int warps = blockDim.x >> 5;
   extern __shared__ float4 smem[];
@@ -205,6 +210,7 @@ force_step_kernel(const float2* __restrict__ pos, const float2* __restrict__ vel
 
   pair_sweep<kFast>(s, alive_bits, prot_bits, T, buf, c);
   __syncthreads();
+  const float dt = *dt_ptr;
 
   if (!c.leapfrog) {
     for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -266,22 +272,22 @@ extern "C" {
 const char* pyqmd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // pos/vel/out_pos/out_vel (B, P, 2) f32, ptype (B, P) i32, alive (B, P)
-// one byte per slot; all contiguous on the device; P <= 32 * kPqMaxTiles.
-// Launches on `stream` and returns cudaGetLastError().
+// one byte per slot, dt one f32; all contiguous on the device (dt is read
+// by the kernel, so a captured launch reads each replay's value);
+// P <= 32 * kPqMaxTiles. Launches on `stream` and returns
+// cudaGetLastError().
 int pyqmd_force_step(const void* pos, const void* vel, const void* ptype, const void* alive,
-                     void* out_pos, void* out_vel, int B, int P, float dt,
+                     void* out_pos, void* out_vel, int B, int P, const void* dt,
                      const PqForceParams* params, void* stream) {
+  static int opted[2][kPqMaxDevices];
   if (B == 0 || P == 0) return 0;
   const PqTileLaunch l = pq_tile_launch(P, sizeof(float4));
   const auto kernel = params->fast_math ? force_step_kernel<true> : force_step_kernel<false>;
-  if (l.smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = pq_opt_in_smem(kernel, l.smem, opted[params->fast_math ? 1 : 0]);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<B, l.warps * 32, l.smem, (cudaStream_t)stream>>>(
       (const float2*)pos, (const float2*)vel, (const int32_t*)ptype, (const uint8_t*)alive,
-      (float2*)out_pos, (float2*)out_vel, P, dt, *params);
+      (float2*)out_pos, (float2*)out_vel, P, (const float*)dt, *params);
   return (int)cudaGetLastError();
 }
 

@@ -104,7 +104,8 @@ __global__ void __launch_bounds__(kSmallThreads)
 force_small_kernel(const float2* __restrict__ pos, const float2* __restrict__ vel,
                    const int32_t* __restrict__ ptype, const uint8_t* __restrict__ alive,
                    float2* __restrict__ out_pos, float2* __restrict__ out_vel, int64_t B, int P,
-                   float dt, PqForceParams c) {
+                   const float* __restrict__ dt_ptr, PqForceParams c) {
+  const float dt = *dt_ptr;
   const int64_t t = (int64_t)blockIdx.x * kSmallThreads + threadIdx.x;
   const int64_t b = t / kSub;
   const int s = (int)(t & (kSub - 1));
@@ -165,7 +166,7 @@ force_small_kernel(const float2* __restrict__ pos, const float2* __restrict__ ve
 
 template <int kSub>
 int launch_small(const void* pos, const void* vel, const void* ptype, const void* alive,
-                 void* out_pos, void* out_vel, int B, int P, float dt,
+                 void* out_pos, void* out_vel, int B, int P, const void* dt,
                  const PqForceParams* params, void* stream) {
   const auto kernel =
       params->fast_math ? force_small_kernel<true, kSub> : force_small_kernel<false, kSub>;
@@ -173,7 +174,7 @@ int launch_small(const void* pos, const void* vel, const void* ptype, const void
   const int blocks = (int)((threads + kSmallThreads - 1) / kSmallThreads);
   kernel<<<blocks, kSmallThreads, 0, (cudaStream_t)stream>>>(
       (const float2*)pos, (const float2*)vel, (const int32_t*)ptype, (const uint8_t*)alive,
-      (float2*)out_pos, (float2*)out_vel, (int64_t)B, P, dt, *params);
+      (float2*)out_pos, (float2*)out_vel, (int64_t)B, P, (const float*)dt, *params);
   return (int)cudaGetLastError();
 }
 
@@ -185,7 +186,7 @@ extern "C" {
 // returns cudaErrorInvalidValue and launches nothing.
 int pyqmd_force_step_small(const void* pos, const void* vel, const void* ptype,
                            const void* alive, void* out_pos, void* out_vel, int B, int P,
-                           float dt, const PqForceParams* params, void* stream) {
+                           const void* dt, const PqForceParams* params, void* stream) {
   if (B == 0 || P == 0) return 0;
   if (P < 0 || P > 32) return (int)cudaErrorInvalidValue;
   const int sub = P <= 2 ? 2 : P <= 4 ? 4 : P <= 8 ? 8 : P <= 16 ? 16 : 32;

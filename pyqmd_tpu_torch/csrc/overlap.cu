@@ -31,6 +31,7 @@
 
 #include "pair_math.cuh"
 #include "pair_tiles.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -158,13 +159,11 @@ extern "C" {
 // `stream` and returns cudaGetLastError().
 int pyqmd_overlap_step(const void* pos, const void* alive, const void* u, void* out_pos,
                        int B, int P, float md, float md2, float max_step, void* stream) {
+  static int opted[kPqMaxDevices];
   if (B == 0 || P == 0) return 0;
   const PqTileLaunch l = pq_tile_launch(P, sizeof(float4));
-  if (l.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        overlap_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = pq_opt_in_smem(overlap_step_kernel, l.smem, opted);
+  if (err != cudaSuccess) return (int)err;
   overlap_step_kernel<<<B, l.warps * 32, l.smem, (cudaStream_t)stream>>>(
       (const float2*)pos, (const uint8_t*)alive, (const float*)u, (float2*)out_pos, P, md,
       md2, max_step);

@@ -13,9 +13,11 @@ no idle share is given.
 - ``u238_full`` and ``he4_full``: the full-physics frame of a U-238
   ensemble (P=256, the tiled force kernel) and of a He-4 one (P=8, the
   sub-warp force kernel), each at 10,240 nuclei and 20 substeps at 1e9
-  years per second (``make_frame_fn``). Parts: the key tree, the ejecta
-  advance and plain decay check of all substeps, the force kernel's calls,
-  the overlap pass (its angle draw and kernel call) and the metrics.
+  years per second (``make_frame_fn``, so on the card the frame is a
+  CUDA graph's replay, ``core/graphs.py``). Parts, each run eagerly: the
+  key tree, the ejecta advance and plain decay check of all substeps, the
+  force kernel's calls, the overlap pass (its angle draw and kernel call)
+  and the metrics.
 - ``c14_survival`` and ``u238_chain``: the decay-statistics frame of C-14
   at 2,097,152 nuclei (``analysis.survival_curve``) and U-238 at 65,536
   (``analysis.chain_populations``), both at 10 substeps per frame and the

@@ -77,9 +77,7 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
-    lib.pyqmd_force_step.argtypes = [_PTR] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, _PTR, _PTR,
-    ]
+    lib.pyqmd_force_step.argtypes = [_PTR] * 6 + [ctypes.c_int, ctypes.c_int] + [_PTR] * 3
     lib.pyqmd_force_step.restype = ctypes.c_int
     lib.pyqmd_force_step_small.argtypes = lib.pyqmd_force_step.argtypes
     lib.pyqmd_force_step_small.restype = ctypes.c_int

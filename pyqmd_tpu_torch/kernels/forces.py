@@ -74,7 +74,10 @@ def force_params(cfg: SimConfig) -> ForceParams:
 
 def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig):
     """One force + integrate substep: pos/vel (B, P, 2) f32, ptype (B, P)
-    int32, alive (B, P) bool or uint8. Returns new (pos, vel)."""
+    int32, alive (B, P) bool or uint8, ``dt`` a float or a 0-d f32 tensor
+    on their device, which the kernel reads from device memory (so that a
+    CUDA graph of the launch reads each replay's dt). Returns new (pos,
+    vel)."""
     if pos.device.type == "cpu":
         return _plain.force_step(pos, vel, ptype, alive, dt, cfg)
     if pos.device.type != "cuda":
@@ -87,6 +90,10 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig):
     _build.check_tensor(vel, "vel", f32, (b, p, 2), pos.device)
     _build.check_tensor(ptype, "ptype", (torch.int32,), (b, p), pos.device)
     _build.check_tensor(alive, "alive", (torch.bool, torch.uint8), (b, p), pos.device)
+    if isinstance(dt, torch.Tensor):
+        _build.check_tensor(dt, "dt", f32, (), pos.device)
+    else:
+        dt = torch.full((), float(dt), dtype=torch.float32, device=pos.device)
     lib = _build.library()
     small = p <= SMALL_MAX_PARTICLES
     entry = lib.pyqmd_force_step_small if small else lib.pyqmd_force_step
@@ -96,7 +103,7 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig):
     with torch.cuda.device(pos.device):
         err = entry(
             pos.data_ptr(), vel.data_ptr(), ptype.data_ptr(), alive.data_ptr(),
-            out_pos.data_ptr(), out_vel.data_ptr(), b, p, float(dt),
+            out_pos.data_ptr(), out_vel.data_ptr(), b, p, dt.data_ptr(),
             ctypes.addressof(params), torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on_error(err, "small force" if small else "force")

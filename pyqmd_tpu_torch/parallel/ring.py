@@ -83,7 +83,8 @@ def _ring_force_local(pos, vel, ptype, alive, dt, cfg: SimConfig, group):
                 block = incoming
         return acc + com_force(p, center, safe, cfg) * m[..., None]
 
-    dt = float(dt)
+    if not isinstance(dt, torch.Tensor):
+        dt = float(dt)
     keep = alive[..., None]
     if cfg.integrator == "leapfrog":
         f1 = total_force(pos)

@@ -21,7 +21,7 @@
 #define __device__
 #define __global__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
 
@@ -102,6 +102,10 @@ enum {
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 
 template <class Kernel, class... Args>

@@ -51,7 +51,9 @@ def _batch(dev, b, p, spread, seed):
     return [t.to(dev) for t in (pos, vel, ptype, alive, u)]
 
 
-@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (2000, 2)])
+# P=600: 48,640 bytes of dynamic shared memory, under 48 KB only without the
+# kernel's static arrays.
+@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (600, 3), (2000, 2)])
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
 def test_force_kernel_matches_plain(dev, p, b, integrator):
     base = SimConfig.for_isotope(2, 2, pad_to=p, integrator=integrator)
@@ -99,7 +101,7 @@ def test_force_kernel_route_is_set_by_capacity_alone(dev):
         assert force_step.small_launches == small_before + small
 
 
-@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (2000, 2)])
+@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (600, 3), (2000, 2)])
 def test_overlap_kernel_matches_plain(dev, p, b):
     cfg = SimConfig.for_isotope(2, 2, pad_to=p)
     pos, _, _, alive, u = _batch(dev, b, p, 10.0 if p > 8 else 4.0, seed=3 * p + b)
@@ -709,3 +711,162 @@ def test_nccl_sharded_checkpoint(dev, nccl_ranks):
         whole, _ = load_checkpoint_sharded(str(out / f"ck_{layout}"))
         for f, a in state_to_numpy(whole).items():
             np.testing.assert_array_equal(a, saved[f], err_msg=f)
+
+
+# --- compiled frame buckets: CUDA graphs of the full-physics frame ---
+
+
+GRAPH_CASES = [((92, 146), 128, 64), ((2, 2), 8, 256), ((92, 146), 128, 1)]
+
+
+def _fresh_factories():
+    """Empty factory caches, so a test sees its own captures."""
+    from pyqmd_tpu_torch.core import step
+
+    step.make_frame_fn.cache_clear()
+    step.make_run_fn.cache_clear()
+    return step
+
+
+def _launches():
+    return (force_step.launches, force_step.small_launches, overlap_step.launches)
+
+
+@pytest.mark.parametrize("zn,pad_to,b", GRAPH_CASES)
+def test_graph_frames_replay_the_eager_frames(dev, zn, pad_to, b):
+    """Each replay against the bare eager frame, every field and metric
+    bitwise: three frames, then a tenth of the time scale and another frame
+    interval (one regime, no second capture); the launch counters move by
+    the eager frame's launches; a replay makes no synchronising call."""
+    step = _fresh_factories()
+    cfg = SimConfig.for_isotope(*zn, pad_to=pad_to)
+    batched = b > 1
+    bare = step.ensemble_step if batched else step.simulate_frame
+    fn = step.make_frame_fn(cfg, 20, batched)
+    calls = [(3.15576e16, 1 / 60)] * 4 + [(3.15576e15, 1 / 60), (3.15576e16, 1 / 24)]
+    got = want = ensemble_init(cfg, b, seed=7, device=dev)
+    for i, (ts, fdt) in enumerate(calls):
+        before = _launches()
+        want, wm = bare(want, cfg, ts, fdt, 20, cfg.effective_dt(), cfg.physics_dt)
+        eager = [a - c for a, c in zip(_launches(), before)]
+        before = _launches()
+        if i == 2:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, gm = fn(got, ts, fdt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert [a - c for a, c in zip(_launches(), before)] == eager, i
+        _assert_states_equal(got, want)
+        assert set(gm) == set(wm)
+        for k in wm:
+            assert torch.equal(gm[k], wm[k]), (i, k)
+    assert fn.graphs.captures == 1 and len(fn.graphs.graphs) == 1
+    assert eager[0] == 20 and eager[2] == 1
+    # The other lifetime regime is a bucket of its own.
+    fn(got, 0.5, 1 / 60)
+    assert fn.graphs.captures == 2
+
+
+@pytest.mark.parametrize("zn,pad_to,b", GRAPH_CASES)
+def test_graph_run_is_k_eager_frames(dev, zn, pad_to, b):
+    step = _fresh_factories()
+    cfg = SimConfig.for_isotope(*zn, pad_to=pad_to)
+    batched = b > 1
+    bare = step.ensemble_step if batched else step.simulate_frame
+    run = step.make_run_fn(cfg, 20, 3, batched)
+    init = ensemble_init(cfg, b, seed=8, device=dev)
+    want = init
+    for _ in range(6):
+        want, wm = bare(want, cfg, 3.15576e16, 1 / 60, 20, cfg.effective_dt(), cfg.physics_dt)
+    got, _ = run(init, 3.15576e16, 1 / 60)  # the first frame eager, then the capture
+    before = _launches()
+    got, gm = run(got, 3.15576e16, 1 / 60)
+    assert [a - c for a, c in zip(_launches(), before)] == [60, 60 * (cfg.max_particles <= 32), 3]
+    _assert_states_equal(got, want)
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k
+    assert run.graphs.captures == 1
+
+
+def test_graph_results_are_fresh_tensors(dev):
+    """A returned state stays as it was after later replays."""
+    step = _fresh_factories()
+    cfg = SimConfig.for_isotope(92, 146, pad_to=128)
+    fn = step.make_frame_fn(cfg, 4, True)
+    st = ensemble_init(cfg, 16, seed=2, device=dev)
+    kept = []
+    for _ in range(4):
+        st, _ = fn(st, 3.15576e16, 1 / 60)
+        kept.append((st, state_to_numpy(st)))
+    for s, copy in kept:
+        for f, a in state_to_numpy(s).items():
+            np.testing.assert_array_equal(a, copy[f], err_msg=f)
+
+
+def test_a_failed_capture_raises_and_names_the_bucket(dev):
+    """A frame that synchronises cannot be captured: the first call raises
+    and names the bucket (in a process of its own, which the failed
+    capture leaves in a state no later test should inherit)."""
+    import sys
+    from pathlib import Path
+
+    probe = (
+        "import torch\n"
+        "from pyqmd_tpu_torch import SimConfig, ensemble_init\n"
+        "from pyqmd_tpu_torch.core import step\n"
+        "real = step._ensemble_metrics\n"
+        "def syncing(st):\n"
+        "    m = real(st)\n"
+        "    m['alive_on_host'] = torch.full((), int(m['total_alive']))\n"
+        "    return m\n"
+        "step._ensemble_metrics = syncing\n"
+        "cfg = SimConfig.for_isotope(2, 2, pad_to=8)\n"
+        "fn = step.make_frame_fn(cfg, 4, True)\n"
+        "try:\n"
+        "    fn(ensemble_init(cfg, 8, device='cuda'), 3.15576e16, 1 / 60)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+        "else:\n"
+        "    print('no error')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=300, cwd=str(Path(__file__).resolve().parent.parent))
+    assert "raised: capture of the frame graph of bucket (Z=2, N=2, P=8, num_steps=4" in (
+        proc.stdout), proc.stdout + proc.stderr
+
+
+def test_a_kernel_opted_into_shared_memory_before_a_capture_replays(dev):
+    """The tiled force kernel at P=600 needs the shared-memory opt-in
+    (its static arrays take the block past 48 KB): the launch before the
+    capture makes the cudaFuncSetAttribute call (once per device and
+    size), so the captured launch makes none and replays the eager
+    launch's bits. In a process of its own, so that no earlier test has
+    opted in."""
+    import sys
+    from pathlib import Path
+
+    probe = (
+        "import torch\n"
+        "from pyqmd_tpu_torch.config import SimConfig\n"
+        "from pyqmd_tpu_torch.kernels.forces import force_step\n"
+        "cfg = SimConfig.for_isotope(92, 146, pad_to=600, fast_math=False)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "d = 'cuda'\n"
+        "pos = (400 + 60 * torch.rand(4, 600, 2, generator=g)).to(d)\n"
+        "vel = torch.randn(4, 600, 2, generator=g).to(d)\n"
+        "ptype = torch.randint(0, 2, (4, 600), generator=g, dtype=torch.int32).to(d)\n"
+        "alive = (torch.rand(4, 600, generator=g) < 0.9).to(d)\n"
+        "dt = torch.full((), 1 / 240, device=d)\n"
+        "want = force_step(pos, vel, ptype, alive, dt, cfg)\n"
+        "graph = torch.cuda.CUDAGraph()\n"
+        "with torch.cuda.graph(graph):\n"
+        "    got = force_step(pos, vel, ptype, alive, dt, cfg)\n"
+        "graph.replay()\n"
+        "torch.cuda.synchronize()\n"
+        "print('replayed equal:', torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=300, cwd=str(Path(__file__).resolve().parent.parent))
+    assert "replayed equal: True" in proc.stdout, proc.stdout + proc.stderr

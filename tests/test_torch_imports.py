@@ -48,6 +48,19 @@ _PROBE = textwrap.dedent(
     assert force_step.small_launches == 0
     assert _build.library.cache_info().currsize == 0
 
+    # The compiled frame buckets: on CPU tensors the factories run eagerly,
+    # capture nothing and touch no CUDA state.
+    assert "pyqmd_tpu_torch.core.graphs" in names and "pyqmd_tpu_torch.core.dynamics" in names
+    from pyqmd_tpu_torch import make_frame_fn, make_run_fn
+    from pyqmd_tpu_torch.core import graphs
+    he4 = SimConfig.for_isotope(2, 2, pad_to=8)
+    frame, run = make_frame_fn(he4, 2, batched=True), make_run_fn(he4, 2, 2, batched=True)
+    st, _ = frame(ensemble_init(he4, 3, device="cpu"), 1e9, 1 / 60)
+    st, _ = run(st, 1e9, 1 / 60)
+    assert st.pos.shape == (3, 8, 2) and frame.graphs.captures == run.graphs.captures == 0
+    assert not frame.graphs.graphs and not graphs._DEVICES
+    assert not torch.cuda.is_initialized()
+
     # The Simulation class, the CLI, checkpoints and the still renderer, on the CPU.
     import os, tempfile
     from pyqmd_tpu_torch import Simulation, cli, load_checkpoint, render_frame
@@ -127,4 +140,4 @@ def test_port_imports_without_jax_and_builds_nothing():
     n_modules = int(proc.stdout.split("MODULES")[1])
     # config, state, prng, analysis, data/*, core/*, kernels/*, sim, cli, utils/*, render/*,
     # parallel/*
-    assert n_modules >= 43
+    assert n_modules >= 46

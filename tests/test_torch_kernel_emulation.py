@@ -85,8 +85,7 @@ def lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(out))
     ptr = ctypes.c_void_p
-    lib.pyqmd_force_step.argtypes = [ptr] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                                 ptr, ptr]
+    lib.pyqmd_force_step.argtypes = [ptr] * 6 + [ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
     lib.pyqmd_force_step_small.argtypes = lib.pyqmd_force_step.argtypes
     lib.pyqmd_overlap_step.argtypes = [ptr] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                                    ctypes.c_float, ctypes.c_float, ptr]
@@ -118,9 +117,10 @@ def _force(lib, pos, vel, ptype, alive, cfg, entry="pyqmd_force_step"):
     out_pos, out_vel = torch.empty_like(pos), torch.empty_like(vel)
     alive8 = alive.to(torch.uint8)
     params = force_params(cfg)
+    dt = ctypes.c_float(DT)  # the kernel reads dt from memory
     err = getattr(lib, entry)(pos.data_ptr(), vel.data_ptr(), ptype.data_ptr(),
                               alive8.data_ptr(), out_pos.data_ptr(), out_vel.data_ptr(), b, p,
-                              DT, ctypes.addressof(params), None)
+                              ctypes.addressof(dt), ctypes.addressof(params), None)
     assert err == 0
     return out_pos, out_vel
 
@@ -172,9 +172,11 @@ def test_small_force_kernel_refuses_larger_nuclei(lib):
     pos, vel, ptype, alive, _ = _batch("p100_dead_tile")
     params = force_params(SimConfig.for_isotope(2, 2, pad_to=100))
     out = torch.full_like(pos, 7.0)
+    dt = ctypes.c_float(DT)
     err = lib.pyqmd_force_step_small(pos.data_ptr(), vel.data_ptr(), ptype.data_ptr(),
                                      alive.to(torch.uint8).data_ptr(), out.data_ptr(),
-                                     out.data_ptr(), 2, 100, DT, ctypes.addressof(params), None)
+                                     out.data_ptr(), 2, 100, ctypes.addressof(dt),
+                                     ctypes.addressof(params), None)
     assert err != 0 and bool((out == 7.0).all())
 
 
