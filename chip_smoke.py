@@ -102,24 +102,35 @@ nonzero, and nothing catches it:
 17. the sharded path (``pyqmd_tpu_torch.parallel``) in a world of one:
     ``make_mesh()`` starts NCCL rank 0 of 1 on the card, and every line
     says so (``"world": 1, "backend": "nccl"``). ``make_sharded_frame_fn``
-    on the U-238 and He-4 slices (10240 nuclei, 3 frames of 20 substeps),
-    every state field bitwise the bare ``make_frame_fn`` loop on the same
-    seed and ``survivors`` the count of members still in the initial
-    isotope, both timed per frame in turns; ``make_sharded_run_fn`` over
-    the same frames, bitwise the frame loop; ``make_sharded_decay_fn`` on
-    C-14 at 2,097,152 nuclei, 20 frames of 10 substeps, bitwise the bare
-    decay loop, the fit from ``survivors`` within 1% of 5,730 years with 20
+    on the U-238 and He-4 slices (10240 nuclei, 20 substeps), a CUDA graph
+    replay of the rank's bucket then one ``all_reduce``, over the calls of
+    one bucket (the first captures, then a replay at 1e9 years per second,
+    at 1e7 and at a frame interval of 1/30 s, each with PyTorch's
+    synchronisation check raising): every field and metric bitwise the
+    eager sharded form (``sharded_frame`` around ``ensemble_step``) and
+    every field bitwise the bare ``make_frame_fn`` graph loop on the same
+    seed, one capture, launches equal to eager's, ``survivors`` the count
+    of members still in the initial isotope; ms per frame in turns (eager,
+    graph, bare graph, graph, eager), capture seconds, pool bytes;
+    ``make_sharded_run_fn`` over the same frames, bitwise the frame loop;
+    ``make_sharded_decay_fn`` (eager: one launch per frame) on C-14 at
+    2,097,152 nuclei, 20 frames of 10 substeps, bitwise the bare decay
+    loop, the fit from ``survivors`` within 1% of 5,730 years with 20
     frame-kernel launches; ``save_checkpoint_sharded`` /
     ``load_checkpoint_sharded`` of that state (seconds and bytes), every
     field and the next frame bitwise; the ring (``make_ring_force_step``,
     ``make_ring_frame_fn``, one U-238 nucleus) and the hybrid frame
     (``make_hybrid_frame_fn``, U-238 B=1024, P=256), exact math: a force
-    step through the ring within 1e-4 of the kernel's, then frames of 2
-    substeps, each bitwise the frame with the plain force step, integer
-    fields equal to the kernel frame's and pos/vel within 1e-3 of it (phase
-    5's bar for a frame) after the first, each frame's ms beside the kernel
-    frame's (the ring's hop is tensor code, as in the reference; the
-    overlap kernel still runs); then
+    step through the ring within 1e-4 of the kernel's, then each frame
+    factory (a graph with the ring's ``all_reduce``s and ``all_gather``
+    inside it) over the calls of one bucket, every replay bitwise the eager
+    frame (the bare frame with the ring step) in every field and metric,
+    the first also bitwise the frame with the plain force step, integer
+    fields equal to the kernel frame's and pos/vel within 1e-3 of it
+    (phase 5's bar for a frame) after the first, one capture, overlap
+    launches only (the ring's hop is tensor code, as in the reference),
+    as eager; ms per frame in turns (eager, graph, eager) beside the
+    kernel frame's, capture seconds and pool bytes; then
     ``examples_torch/sharded_survival.py`` as a subprocess on its default
     device. The group is destroyed at the end of the phase;
 18. the compiled frame buckets (``pyqmd_tpu_torch/core/graphs.py``) on
@@ -162,6 +173,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -220,6 +232,7 @@ from pyqmd_tpu_torch.parallel import (
     make_sharded_run_fn,
     shard_ensemble,
 )
+from pyqmd_tpu_torch.parallel.ensemble import sharded_frame
 from pyqmd_tpu_torch.render import (
     PipelinedFrameReader,
     render_frame,
@@ -1711,6 +1724,40 @@ def _state_diff(a, b, what: str) -> float:
     return max(max_diff(a.pos, b.pos), max_diff(a.vel, b.vel))
 
 
+# The calls of one graph bucket in phase 17: the first captures, then a
+# replay at the same scalars, at a hundredth of the time scale and at
+# another frame interval (time_scale > 1 throughout).
+BUCKET_CALLS = ((TIME_SCALE, FRAME_DT), (TIME_SCALE, FRAME_DT), (TIME_SCALE / 100, FRAME_DT),
+                (TIME_SCALE, 1 / 30))
+
+
+@contextlib.contextmanager
+def timed_captures():
+    """Every graph capture inside the block timed on the host, the card
+    synchronised around it; yields the list of seconds."""
+    record, capture_s = graphs._record, []
+
+    def timed_record(fn, dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = record(fn, dev)
+        torch.cuda.synchronize()
+        capture_s.append(time.perf_counter() - t0)
+        return graph
+
+    graphs._record = timed_record
+    try:
+        yield capture_s
+    finally:
+        graphs._record = record
+
+
+def _metrics_equal(a: dict, b: dict, what: str) -> None:
+    assert set(a) == set(b), (what, sorted(a), sorted(b))
+    for k in a:
+        assert torch.equal(a[k], b[k]), (what, k)
+
+
 def phase_sharded(smi: str) -> dict:
     """17: the sharded path in a world of one; returns each kernel's
     launches from the sharded calls alone."""
@@ -1719,16 +1766,19 @@ def phase_sharded(smi: str) -> dict:
     assert (world, backend) == (1, "nccl"), (world, backend)
     where = {"world": world, "backend": backend, "card": smi}
     launches = dict.fromkeys(("force", "force_small", "overlap", "decay_stats"), 0)
+    last = {}
 
     def sharded(fn, *args):
-        """A call of the sharded path, its kernel launches counted."""
+        """A call of the sharded path, its kernel launches counted (and
+        kept in ``last``)."""
         force_step.launches = force_step.small_launches = 0
         overlap_step.launches = decay_stats_frame.launches = 0
         out = fn(*args)
-        launches["force"] += force_step.launches - force_step.small_launches
-        launches["force_small"] += force_step.small_launches
-        launches["overlap"] += overlap_step.launches
-        launches["decay_stats"] += decay_stats_frame.launches
+        last.update(force=force_step.launches - force_step.small_launches,
+                    force_small=force_step.small_launches, overlap=overlap_step.launches,
+                    decay_stats=decay_stats_frame.launches)
+        for k in launches:
+            launches[k] += last[k]
         return out
 
     def timed_ms(fn, *args):
@@ -1738,40 +1788,92 @@ def phase_sharded(smi: str) -> dict:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    # Full-physics frames: sharded and bare in turns from one seed.
+    def turns(forms: dict, order: tuple, st) -> tuple[dict, dict]:
+        """ms per frame of each form in ``order``, FRAMES frames a turn
+        at 1e9 years per second from ``st``, and each form's last state."""
+        ms, out = {name: [] for name in forms}, {}
+        for name in order:
+            x = st
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FRAMES):
+                x, _ = sharded(forms[name], x, TIME_SCALE, FRAME_DT)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / FRAMES * 1e3)
+            out[name] = x
+        return ms, out
+
+    def graph_call(fn, i, *args):
+        """A factory's call; a replay (any call but the bucket's first)
+        under PyTorch's synchronisation check."""
+        if i == 0:
+            return sharded(fn, *args)
+        torch.cuda.synchronize()
+        with no_synchronising_call():
+            return sharded(fn, *args)
+
+    # Full-physics frames: the sharded frame (a graph replay of the
+    # rank's bucket, then the all_reduce) against the eager sharded form
+    # and the bare graph loop from one seed, over the calls of one bucket;
+    # then ms per frame in turns. A fresh factory cache: the capture is the
+    # sharded frame's own.
+    step.make_frame_fn.cache_clear()
     for isotope, z, n, pad in (("U-238", 92, 146, 128), ("He-4", 2, 2, 8)):
         cfg = SimConfig.for_isotope(z, n, pad_to=pad)
         steps = cfg.num_substeps(FRAME_DT, TIME_SCALE)
         init = ensemble_init(cfg, SLICE_B, seed=0, device=DEV)
-        a, fused_in = shard_ensemble(init, mesh), shard_ensemble(init, mesh)
+        local = shard_ensemble(init, mesh)
         frame = make_sharded_frame_fn(cfg, steps, mesh)
+        eager = sharded_frame(
+            lambda st, ts, fdt, cfg=cfg, steps=steps: step.ensemble_step(st, cfg, ts, fdt, steps),
+            cfg, mesh, DATA_AXIS)
         bare = make_frame_fn(cfg, steps, batched=True)
-        b, ms, bare_ms = init, [], []
-        for _ in range(FRAMES):
-            (a, m), t = timed_ms(sharded, frame, a, TIME_SCALE, FRAME_DT)
-            ms.append(t)
-            # The sharded frames pass no raw physics dt, as the reference's do.
-            (b, mb), t = timed_ms(bare, b, TIME_SCALE, FRAME_DT, cfg.effective_dt(), None)
-            bare_ms.append(t)
-        _states_equal(a, b, f"{isotope} sharded frame vs bare loop")
+        a = e = local
+        b = init
+        per_frame = None
+        with timed_captures() as capture_s:
+            for i, (ts, fdt) in enumerate(BUCKET_CALLS):
+                a, m = graph_call(frame, i, a, ts, fdt)
+                per_frame = dict(last)
+                e, me = sharded(eager, e, ts, fdt)
+                assert last == per_frame, (isotope, i, last, per_frame)
+                # The sharded frames pass no raw physics dt, as the reference's do.
+                b, mb = bare(b, ts, fdt, cfg.effective_dt(), None)
+                _states_equal(a, e, f"{isotope} sharded graph frame {i} vs eager sharded frame")
+                _metrics_equal(m, me, f"{isotope} sharded graph frame {i} metrics")
+                _states_equal(a, b, f"{isotope} sharded graph frame {i} vs bare graph loop")
+                assert torch.equal(m["total_decay_counts"], mb["total_decay_counts"])
+                assert int(m["total_alive"]) == int(mb["total_alive"])
+        assert frame.graphs.captures == 1 and len(frame.graphs.graphs) == 1, isotope
+        assert len(capture_s) == 1, capture_s  # the bare loop replays the same bucket
+        pool = _pool_bytes()
         survivors = int(((a.z == z) & (a.n == n)).sum())
         assert int(m["survivors"]) == survivors, (int(m["survivors"]), survivors)
-        assert torch.equal(m["total_decay_counts"], mb["total_decay_counts"])
-        assert int(m["total_alive"]) == int(mb["total_alive"])
         decays = int(m["total_decay_counts"].sum())
         assert (decays > 0) if z > 2 else (decays == 0 and survivors == SLICE_B), decays
+        forms = {"eager": eager, "graph": frame,
+                 "bare_graph": lambda st, ts, fdt: bare(st, ts, fdt, cfg.effective_dt(), None)}
+        ms, out = turns(forms, ("eager", "graph", "bare_graph", "graph", "eager"), local)
+        _states_equal(out["graph"], out["eager"], f"{isotope} turns")
         line = {"phase": "sharded", "case": f"{isotope.lower()}_frame", "B": SLICE_B,
-                "P": cfg.max_particles, "frames": FRAMES, "substeps_per_frame": steps,
-                "bitwise_vs_bare_loop": True, "survivors": survivors, "decays": decays,
-                "ms_per_frame_sharded": ms, "ms_per_frame_bare": bare_ms, **where}
+                "P": cfg.max_particles, "substeps_per_frame": steps,
+                "calls_bitwise": len(BUCKET_CALLS),
+                "time_scales": sorted({c[0] for c in BUCKET_CALLS}),
+                "frame_dts": sorted({c[1] for c in BUCKET_CALLS}),
+                "bitwise_vs_eager_sharded": True, "bitwise_vs_bare_graph_loop": True,
+                "captures": frame.graphs.captures, "capture_s": capture_s,
+                "synchronising_calls_in_a_replay": 0, "launches_per_frame": per_frame,
+                "survivors": survivors, "decays": decays,
+                "ms_per_frame_eager_sharded": ms["eager"], "ms_per_frame_graph": ms["graph"],
+                "ms_per_frame_bare_graph": ms["bare_graph"], "pool_bytes": pool, **where}
         if z > 2:
             run = make_sharded_run_fn(cfg, steps, FRAMES, mesh)
-            (r, mr), t = timed_ms(sharded, run, fused_in, TIME_SCALE, FRAME_DT)
-            _states_equal(r, a, "sharded run vs sharded frame loop")
-            assert int(mr["survivors"]) == survivors
-            line.update(run_bitwise_vs_frame_loop=True, run_ms_per_frame=t / FRAMES)
+            (r, mr), t = timed_ms(sharded, run, local, TIME_SCALE, FRAME_DT)
+            _states_equal(r, out["graph"], "sharded run vs sharded frame loop")
+            assert int(mr["survivors"]) == int(((r.z == z) & (r.n == n)).sum())
+            line.update(run_bitwise_vs_frame_loop=True, run_first_call_ms_per_frame=t / FRAMES)
         emit(line)
-        del init, a, b, fused_in
+        del init, local, a, b, e, out
 
     # The decay-statistics slice, sharded: C-14 at 2M, the fit from the
     # summed survivors.
@@ -1823,10 +1925,14 @@ def phase_sharded(smi: str) -> dict:
 
     # The ring and the hybrid frame, exact math. One force step through the
     # ring against the kernel's at EXACT_TOL, for one nucleus and for the
-    # hybrid's batch; each frame bitwise the same frame with the plain force
-    # step (a ring of one adds no rounding); against the kernel frame the
-    # integer fields equal in every frame and pos/vel within FRAME_TOL after
-    # the first (later frames' differences printed only).
+    # hybrid's batch. Then each factory's frames over the calls of one
+    # bucket (the first captures, the ring's collectives inside the graph):
+    # every replay bitwise the eager frame (the bare frame with the ring
+    # step), the first also bitwise the frame with the plain force step (a
+    # ring of one adds no rounding); against the kernel frame the integer
+    # fields equal in every frame and pos/vel within FRAME_TOL after the
+    # first (later frames' differences printed only). Then ms per frame in
+    # turns.
     exact = dataclasses.replace(SimConfig.for_isotope(92, 146, pad_to=128), fast_math=False)
     model = make_mesh((1,), (MODEL_AXIS,))
     one = init_state(exact, seed=0, device=DEV)
@@ -1840,41 +1946,72 @@ def phase_sharded(smi: str) -> dict:
         kp, kv = force_step(st.pos, st.vel, st.ptype, st.alive, DT, exact)
         force_err[name] = max(max_diff(rp, kp), max_diff(rv, kv))
         assert force_err[name] <= EXACT_TOL, (name, force_err)
-    cases = (("ring", make_ring_frame_fn(exact, RING_STEPS, model), one,
-              lambda st, f: step.simulate_frame(st, exact, TIME_SCALE, FRAME_DT, RING_STEPS,
-                                                force_step_fn=f)),
+
+    def single(st, f, ts, fdt):
+        return step.simulate_frame(st, exact, ts, fdt, RING_STEPS, force_step_fn=f)
+
+    def batched(st, f, ts, fdt):
+        return step.ensemble_step(st, exact, ts, fdt, RING_STEPS, force_step_fn=f)
+
+    ring_step = make_ring_force_step(exact, model)
+    hybrid_step = make_ring_force_step(exact, hmesh)
+    cases = (("ring", make_ring_frame_fn(exact, RING_STEPS, model),
+              lambda st, ts, fdt: single(st, ring_step, ts, fdt), single, one),
              ("hybrid", make_hybrid_frame_fn(exact, RING_STEPS, hmesh),
-              shard_ensemble(init, hmesh),
-              lambda st, f: step.ensemble_step(st, exact, TIME_SCALE, FRAME_DT, RING_STEPS,
-                                               force_step_fn=f)))
+              sharded_frame(lambda st, ts, fdt: batched(st, hybrid_step, ts, fdt),
+                            exact, hmesh, DATA_AXIS), batched, shard_ensemble(init, hmesh)))
     line = {"phase": "sharded", "case": "ring_and_hybrid", "P": exact.max_particles,
             "substeps_per_frame": RING_STEPS, "hybrid_B": HYBRID_B,
+            "calls_bitwise": len(BUCKET_CALLS),
+            "time_scales": sorted({c[0] for c in BUCKET_CALLS}),
+            "frame_dts": sorted({c[1] for c in BUCKET_CALLS}),
             "force_step_max_abs_err_vs_kernel": force_err}
-    for name, frame, st, dense in cases:
-        kern, ms, kernel_ms, errs = st, [], [], []
-        for i in range(FRAMES):
-            (out, m), t = timed_ms(sharded, frame, st, TIME_SCALE, FRAME_DT)
-            ms.append(t)
-            if i == 0:
-                plain, _ = dense(st, plain_forces.force_step)
-                _states_equal(out, plain, f"{name} frame vs the plain force step's frame")
-            (kern, km), t = timed_ms(dense, kern, None)
-            kernel_ms.append(t)
-            errs.append(_state_diff(out, kern, f"{name} frame vs kernel frame"))
-            if name == "hybrid":
-                assert torch.equal(m["total_decay_counts"], km["total_decay_counts"])
-                assert int(m["survivors"]) == int(((kern.z == 92) & (kern.n == 146)).sum())
-            st = out
+    for name, frame, eager, dense, st in cases:
+        pool_before = _pool_bytes()
+        out = want = kern = st
+        kernel_ms, errs, per_frame = [], [], None
+        with timed_captures() as capture_s:
+            for i, (ts, fdt) in enumerate(BUCKET_CALLS):
+                out, m = graph_call(frame, i, out, ts, fdt)
+                per_frame = dict(last)
+                want, wm = sharded(eager, want, ts, fdt)
+                assert last == per_frame, (name, i, last, per_frame)
+                _states_equal(out, want, f"{name} graph frame {i} vs eager frame")
+                _metrics_equal(m, wm, f"{name} graph frame {i} metrics")
+                if i == 0:
+                    plain, _ = dense(st, plain_forces.force_step, ts, fdt)
+                    _states_equal(out, plain, f"{name} frame vs the plain force step's frame")
+                (kern, km), t = timed_ms(dense, kern, None, ts, fdt)
+                kernel_ms.append(t)
+                errs.append(_state_diff(out, kern, f"{name} frame vs kernel frame"))
+                if name == "hybrid":
+                    assert torch.equal(m["total_decay_counts"], km["total_decay_counts"])
+                    assert int(m["survivors"]) == int(((kern.z == 92) & (kern.n == 146)).sum())
         assert errs[0] <= FRAME_TOL, (name, errs)
-        line.update({f"{name}_bitwise_vs_plain_force_frame": True,
+        assert frame.graphs.captures == 1 == len(capture_s), (name, capture_s)
+        # The ring replaces the force kernel; the overlap kernel still runs.
+        assert per_frame["force"] == 0 and per_frame["overlap"] == exact.overlap_iterations, (
+            name, per_frame)
+        pool = _pool_bytes()
+        ms, last_states = turns({"eager": eager, "graph": frame}, ("eager", "graph", "eager"), st)
+        _states_equal(last_states["graph"], last_states["eager"], f"{name} turns")
+        line.update({f"{name}_bitwise_vs_eager_frame": True,
+                     f"{name}_bitwise_vs_plain_force_frame": True,
                      f"{name}_max_abs_err_vs_kernel_frame": errs,
-                     f"{name}_ms_per_frame": ms, f"{name}_kernel_frame_ms_per_frame": kernel_ms})
+                     f"{name}_captures": frame.graphs.captures, f"{name}_capture_s": capture_s,
+                     f"{name}_launches_per_frame": per_frame,
+                     f"{name}_synchronising_calls_in_a_replay": 0,
+                     f"{name}_ms_per_frame_eager": ms["eager"],
+                     f"{name}_ms_per_frame_graph": ms["graph"],
+                     f"{name}_kernel_frame_ms_per_frame": kernel_ms,
+                     f"{name}_pool_bytes_before_capture": pool_before,
+                     f"{name}_pool_bytes": pool})
+        del out, want, kern, last_states
     ring_launches = {k: launches[k] - before[k] for k in launches}
-    # The ring replaces the force kernel; the overlap kernel still runs.
     assert ring_launches["force"] == 0, ring_launches
-    assert ring_launches["overlap"] == 2 * FRAMES * exact.overlap_iterations, ring_launches
     emit({**line, "launches": ring_launches, **where})
-    del init, kern, out, st
+    del init, st, cases, frame, eager
+    gc.collect()  # the ring's graphs hold NCCL launches: gone before their group
     dist.destroy_process_group()
 
     # The example on its default device: one rank per visible card.
@@ -2076,23 +2213,9 @@ def phase_graphs(smi: str) -> None:
     per frame in turns, the card's idle share over three profiled graph
     frames, the capture's seconds, the replay and copy times on the card's
     clock and the memory pool's bytes."""
-    record = graphs._record
     for name, zn, pad_to, b in GRAPH_CASES:
-        capture_s = []
-
-        def timed_record(fn, dev):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            graph = record(fn, dev)
-            torch.cuda.synchronize()
-            capture_s.append(time.perf_counter() - t0)
-            return graph
-
-        graphs._record = timed_record
-        try:
+        with timed_captures() as capture_s:
             emit(_graph_case(name, zn, pad_to, b, capture_s, smi))
-        finally:
-            graphs._record = record
         torch.cuda.empty_cache()
 
 

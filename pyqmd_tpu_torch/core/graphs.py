@@ -4,7 +4,11 @@ counterpart of the JAX package's ``jax.jit`` frame and ``lax.scan`` run
 
 :class:`FrameGraphs` is the callable behind
 :func:`~pyqmd_tpu_torch.core.step.make_frame_fn` and
-:func:`~pyqmd_tpu_torch.core.step.make_run_fn`. On CPU tensors it runs the
+:func:`~pyqmd_tpu_torch.core.step.make_run_fn`, and so behind the sharded
+frames of :mod:`pyqmd_tpu_torch.parallel`; the ring and hybrid frames hold
+their NCCL collectives inside the graph, as the JAX package's ``shard_map``
+programs hold theirs (``pyqmd_tpu/parallel/ensemble.py:69``,
+``ring.py:118``). On CPU tensors it runs the
 frame eagerly. On the card a frame issues ~9,400 launches from the host,
 and the host's time, not the card's, sets its length; so each graph bucket
 (batch size, device, whether ``raw_physics_dt`` is None, and the
@@ -13,8 +17,10 @@ replayed:
 
 * The first call of a bucket runs its first frame eagerly on a side
   stream (the warm-up: it builds the kernel library, copies the constant
-  tables to the device and opts the kernels into their shared memory, so
-  the capture makes no such call) and returns that frame's result; then
+  tables to the device, opts the kernels into their shared memory and
+  runs every collective of the frame, so that NCCL has made its
+  communicators, and the capture makes no such call) and returns that
+  frame's result; then
   it captures the frame with :func:`torch.cuda.graph`. Its launches count
   as launches; the capture's do not.
 * Later calls write the frame's scalars into the graph's scalar vector
@@ -101,9 +107,16 @@ def shared(device: torch.device) -> _Device:
 
 
 def _record(fn, dev: _Device) -> torch.cuda.CUDAGraph:
-    """``fn()`` captured as a CUDA graph on ``dev``'s side stream and pool."""
+    """``fn()`` captured as a CUDA graph on ``dev``'s side stream and pool.
+
+    The capture forbids unsafe CUDA calls on the capturing thread only
+    (``thread_local``), for every bucket: in the default ``global`` mode a
+    call from any other thread of the process during the capture (an NCCL
+    process group's watchdog querying its events, a viewer's handler
+    thread reading a frame) invalidates it."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=dev.pool, stream=dev.side):
+    with torch.cuda.graph(graph, pool=dev.pool, stream=dev.side,
+                          capture_error_mode="thread_local"):
         fn()
     return graph
 
@@ -169,10 +182,13 @@ class FrameGraphs:
     computes once at the end.
 
     ``graphs`` maps each graph bucket to its :class:`Graph`; ``captures``
-    counts the captures made."""
+    counts the captures made. ``group`` names the process groups whose
+    collectives the body runs (the particle-axis ring's), for the bucket's
+    name; every rank of such a group must make its calls in lockstep, so
+    that all of them capture at the same call."""
 
     def __init__(self, cfg: SimConfig, num_steps: int, body, metrics, frames: int,
-                 graph_metrics: bool):
+                 graph_metrics: bool, group: str = ""):
         if frames < 0:
             raise ValueError(f"frames must be >= 0, got {frames}")
         self.cfg = cfg
@@ -181,6 +197,7 @@ class FrameGraphs:
         self.metrics = metrics
         self.frames = frames
         self.graph_metrics = graph_metrics
+        self.group = group
         self.graphs: dict = {}
         self.captures = 0
 
@@ -192,9 +209,11 @@ class FrameGraphs:
     def describe(self, key: tuple) -> str:
         b, dev, raw_none, fast = key
         cfg = self.cfg
+        group = f", {self.group}" if self.group else ""
         return (f"(Z={cfg.z}, N={cfg.n}, P={cfg.max_particles}, num_steps={self.num_steps}, "
                 f"frames={self.frames}, B={b}, {dev}, raw_physics_dt "
-                f"{'None' if raw_none else 'given'}, time_scale {'> 1' if fast else '<= 1'})")
+                f"{'None' if raw_none else 'given'}, time_scale {'> 1' if fast else '<= 1'}"
+                f"{group})")
 
     def __call__(self, state: NucleusState, time_scale, frame_dt, physics_dt, raw_physics_dt):
         dyn = frame_dynamics(self.cfg, time_scale, frame_dt, self.num_steps, physics_dt,

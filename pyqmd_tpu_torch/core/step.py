@@ -299,6 +299,18 @@ def _metrics(states: NucleusState, batched: bool) -> dict:
     return _ensemble_metrics(states) if batched else state_metrics(states)
 
 
+def frame_graphs(cfg: SimConfig, num_steps: int, batched: bool, force_step_fn=None,
+                 group: str = "") -> FrameGraphs:
+    """The :class:`~pyqmd_tpu_torch.core.graphs.FrameGraphs` of a frame
+    function: :func:`frame_body` with ``force_step_fn``, and its metrics
+    (batched or one nucleus's) inside the graph; ``group`` names the
+    process groups of ``force_step_fn``'s collectives."""
+    body = frame_body if force_step_fn is None else functools.partial(
+        frame_body, force_step_fn=force_step_fn)
+    return FrameGraphs(cfg, num_steps, body, functools.partial(_metrics, batched=batched),
+                       frames=1, graph_metrics=True, group=group)
+
+
 @functools.lru_cache(maxsize=128)
 def make_frame_fn(cfg: SimConfig, num_steps: int, batched: bool = False):
     """Frame function for a (config, substep-count) bucket, with the
@@ -315,9 +327,7 @@ def make_frame_fn(cfg: SimConfig, num_steps: int, batched: bool = False):
     The callable's ``graphs`` attribute is its
     :class:`~pyqmd_tpu_torch.core.graphs.FrameGraphs`.
     """
-    graphs = FrameGraphs(cfg, num_steps, frame_body,
-                         functools.partial(_metrics, batched=batched), frames=1,
-                         graph_metrics=True)
+    graphs = frame_graphs(cfg, num_steps, batched)
 
     def frame(state, time_scale, frame_dt, physics_dt=cfg.effective_dt(),
               raw_physics_dt=cfg.physics_dt):

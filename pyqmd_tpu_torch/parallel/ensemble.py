@@ -2,13 +2,19 @@
 statistics summed across it.
 
 The ensemble is a batch of independent nuclei, so each rank runs the
-port's own batched frame (:func:`pyqmd_tpu_torch.core.step.ensemble_step`,
-``decay_ensemble_step``, ``make_run_fn``) on its rows, through the same
-kernels as one card, and the only traffic is one ``all_reduce`` of a
-packed int32 vector per frame: the decay counts, the alive total and the
-survivors. The per-nucleus metrics stay with the rank's rows. The JAX
-package's form is ``shard_map`` with ``psum`` over the mesh axis
-(``pyqmd_tpu/parallel/ensemble.py``).
+port's own batched frame (``make_frame_fn``, ``make_run_fn``,
+``decay_ensemble_step`` of :mod:`pyqmd_tpu_torch.core.step`) on its rows,
+through the same kernels as one card, and the only traffic is one
+``all_reduce`` of a packed int32 vector per frame: the decay counts, the
+alive total and the survivors. The per-nucleus metrics stay with the
+rank's rows. The JAX package's form is ``shard_map`` with ``psum`` over
+the mesh axis, compiled as one program (``pyqmd_tpu/parallel/ensemble.py``).
+
+On the card the full-physics frames replay the single-card CUDA graph of
+the rank's bucket (:mod:`pyqmd_tpu_torch.core.graphs`: the local batch,
+the device, the regime), and the ``all_reduce`` runs once after each
+replay, outside the graph; on CPU tensors they run eagerly. The decay-only
+frame stays eager: it is one kernel launch per frame.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 from pyqmd_tpu_torch.config import SimConfig
-from pyqmd_tpu_torch.core.step import decay_ensemble_step, ensemble_step, make_run_fn
+from pyqmd_tpu_torch.core.step import decay_ensemble_step, make_frame_fn, make_run_fn
 from pyqmd_tpu_torch.parallel.mesh import DATA_AXIS
 
 if TYPE_CHECKING:
@@ -69,11 +75,19 @@ def make_sharded_frame_fn(cfg: SimConfig, num_steps: int, mesh: DeviceMesh,
     Returns ``fn(states, time_scale, frame_dt) -> (states, metrics)`` where
     ``states`` are this rank's rows (:func:`shard_ensemble`). Per-nucleus
     metrics stay with the rows; ``total_decay_counts``, ``total_alive`` and
-    ``survivors`` are summed over the ``axis`` group.
+    ``survivors`` are summed over the ``axis`` group. The local frame is
+    :func:`pyqmd_tpu_torch.core.step.make_frame_fn`'s, with no raw physics
+    dt as in the JAX package's sharded frames: bitwise
+    :func:`~pyqmd_tpu_torch.core.step.ensemble_step`, a graph replay per
+    call on the card; ``fn.graphs`` is its
+    :class:`~pyqmd_tpu_torch.core.graphs.FrameGraphs`.
     """
-    return sharded_frame(
-        lambda st, ts, fdt: ensemble_step(st, cfg, ts, fdt, num_steps), cfg, mesh, axis
+    frame = make_frame_fn(cfg, num_steps, batched=True)
+    call = sharded_frame(
+        lambda st, ts, fdt: frame(st, ts, fdt, cfg.effective_dt(), None), cfg, mesh, axis
     )
+    call.graphs = frame.graphs
+    return call
 
 
 def make_sharded_decay_fn(cfg: SimConfig, num_steps: int, mesh: DeviceMesh,
@@ -91,8 +105,10 @@ def make_sharded_run_fn(cfg: SimConfig, num_steps: int, num_frames: int, mesh: D
                         axis: str = DATA_AXIS):
     """Fused sharded run: ``num_frames`` whole frames of
     :func:`pyqmd_tpu_torch.core.step.make_run_fn` on this rank's rows with
-    no collective between them, at a constant time scale. Returns the final
-    state and its metrics, the aggregates summed over ``axis``."""
+    no collective between them, at a constant time scale (on the card the
+    frame's graph replayed ``num_frames`` times). Returns the final state
+    and its metrics, the aggregates summed over ``axis`` by one
+    ``all_reduce`` after the last frame."""
     run = make_run_fn(cfg, num_steps, num_frames, batched=True)
     # The JAX package's sharded frames pass no raw physics dt.
     return sharded_frame(

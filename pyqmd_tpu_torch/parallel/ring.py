@@ -12,6 +12,13 @@ by ``ppermute`` inside ``shard_map`` (``pyqmd_tpu/parallel/ring.py``).
 Each hop is :func:`pyqmd_tpu_torch.core.forces.pair_forces_block` in
 tensor code, on CUDA tensors on the card, as in the reference, where the
 hop is jnp outside any Pallas kernel.
+
+The ring step reads no tensor on the host and takes ``dt`` as a 0-d
+tensor, so :func:`make_ring_frame_fn` replays it inside the frame's CUDA
+graph on the card, its ``all_reduce``s, exchanges and ``all_gather``
+captured with the rest (NCCL); the JAX package's ring runs inside one
+jitted program (``pyqmd_tpu/parallel/ring.py:118``). Called alone,
+:func:`make_ring_force_step` runs eagerly.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch.distributed as dist
 
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core.forces import com_force, pair_forces_block
-from pyqmd_tpu_torch.core.step import simulate_frame
+from pyqmd_tpu_torch.core.step import frame_graphs
 from pyqmd_tpu_torch.parallel.mesh import MODEL_AXIS
 
 if TYPE_CHECKING:
@@ -106,6 +113,14 @@ def _check_divisible(p: int, mesh: DeviceMesh, axis: str) -> int:
     return n
 
 
+def group_label(mesh: DeviceMesh, axis: str) -> str:
+    """The ``axis`` group of ``mesh`` as a graph bucket's name gives it:
+    its global ranks and its backend."""
+    group = mesh.get_group(axis)
+    return (f"{axis} group of ranks {dist.get_process_group_ranks(group)} "
+            f"({dist.get_backend(group)})")
+
+
 def make_ring_force_step(cfg: SimConfig, mesh: DeviceMesh, axis: str = MODEL_AXIS):
     """A force step with the particle axis sharded over ``axis``: the
     semantics of :func:`pyqmd_tpu_torch.kernels.forces.force_step`,
@@ -116,6 +131,9 @@ def make_ring_force_step(cfg: SimConfig, mesh: DeviceMesh, axis: str = MODEL_AXI
     Every rank of the ``axis`` group passes the same full-width tensors and
     steps its own particle block through the ring; the blocks are gathered
     back along the particle axis, so every rank returns the full result.
+    The step runs eagerly; the frames of :func:`make_ring_frame_fn` and
+    :func:`~pyqmd_tpu_torch.parallel.hybrid.make_hybrid_frame_fn` capture
+    it as part of theirs.
     """
     group = mesh.get_group(axis)
 
@@ -146,13 +164,27 @@ def make_ring_frame_fn(cfg: SimConfig, num_steps: int, mesh: DeviceMesh,
     decay sampling, chain log, overlap) runs replicated on every rank of
     the group, and every substep's O(N^2) force + integrate runs as the
     ring over the particle axis. ``cfg.max_particles`` must be divisible by
-    the ``axis`` size.
+    the ``axis`` size. The result is bitwise ``simulate_frame`` with
+    :func:`make_ring_force_step` as its ``force_step_fn``.
+
+    On the card each graph bucket (:mod:`pyqmd_tpu_torch.core.graphs`) is
+    captured at its first call, the ring's collectives inside the graph,
+    and replayed after. Every rank of the group must make the same calls
+    in lockstep: the batch is 1 everywhere, so all ranks capture at the
+    same call, and a rank that captured alone would wait in its
+    collectives for the others. On CPU tensors the frame runs eagerly.
+    ``frame.graphs`` is the frame's
+    :class:`~pyqmd_tpu_torch.core.graphs.FrameGraphs`, which this call
+    owns: a bucket never outlives the frame function or crosses meshes.
     """
     _check_divisible(cfg.max_particles, mesh, axis)
-    fstep = make_ring_force_step(cfg, mesh, axis)
+    graphs = frame_graphs(cfg, num_steps, False, make_ring_force_step(cfg, mesh, axis),
+                          group_label(mesh, axis))
 
     def frame(state, time_scale, frame_dt):
-        return simulate_frame(state, cfg, time_scale, frame_dt, num_steps,
-                              force_step_fn=fstep)
+        if state.batch != 1:
+            raise ValueError(f"simulate_frame takes a batch of 1, got {state.batch}")
+        return graphs(state, time_scale, frame_dt, None, None)
 
+    frame.graphs = graphs
     return frame

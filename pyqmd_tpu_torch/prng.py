@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -103,9 +104,9 @@ def uniform(
     bits = random_bits(keys, shape)
     # Random mantissa under the exponent of 1.0: a float in [1, 2).
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = float(torch.tensor(minval, dtype=torch.float32))
-    hi = float(torch.tensor(maxval, dtype=torch.float32))
-    span = float(torch.tensor(hi, dtype=torch.float32) - lo)
+    # The bounds rounded to f32 on the host, with no tensor read back.
+    lo, hi = np.float32(minval), np.float32(maxval)
+    lo, span = float(lo), float(hi - lo)
     # XLA fuses the scale and shift into one fused multiply-add (one
     # rounding); the f32 product is exact in f64, so this rounds alike.
     return torch.clamp((floats.double() * span + lo).float(), min=lo)

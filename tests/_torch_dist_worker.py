@@ -9,13 +9,15 @@ only the cases of :data:`CARD_CASES`. With ``--world 1`` the one rank
 runs in this process and starts no group itself, so ``make_mesh`` starts
 the world of one. Rank r writes its results, numpy arrays and plain
 values, to ``DIR/rank{r}.pkl`` and the sharded checkpoints under ``DIR``.
-It imports torch, numpy and the port only: spawned ranks re-import this
-module, the test modules import JAX, and the card's machine has none.
+It imports torch, numpy, the port and ``_torch_parity`` (no JAX either)
+only: spawned ranks re-import this module, the test modules import JAX,
+and the card's machine has none.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import pickle
 import sys
@@ -26,8 +28,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
+import _torch_parity as tp  # noqa: E402
 from pyqmd_tpu_torch.config import SimConfig  # noqa: E402
+from pyqmd_tpu_torch.core.dynamics import FrameScalars, frame_dynamics, scalar_values  # noqa: E402
 from pyqmd_tpu_torch.core.init import ensemble_init, init_state  # noqa: E402
+from pyqmd_tpu_torch.core.step import ensemble_step, simulate_frame  # noqa: E402
+from pyqmd_tpu_torch.kernels.forces import force_step  # noqa: E402
+from pyqmd_tpu_torch.kernels.overlap import overlap_step  # noqa: E402
 from pyqmd_tpu_torch.parallel import (  # noqa: E402
     DATA_AXIS,
     MODEL_AXIS,
@@ -44,6 +51,7 @@ from pyqmd_tpu_torch.parallel import (  # noqa: E402
     replicated,
     shard_ensemble,
 )
+from pyqmd_tpu_torch.parallel.ensemble import sharded_frame  # noqa: E402
 from pyqmd_tpu_torch.parallel.mesh import local_rows  # noqa: E402
 from pyqmd_tpu_torch.state import state_to_numpy  # noqa: E402
 from pyqmd_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -53,10 +61,15 @@ from pyqmd_tpu_torch.utils.checkpoint import (  # noqa: E402
 
 DEVICE = "cpu"  # this rank's device type, set by run_rank
 U238_TS = 3.15576e16
+# The calls of one graph bucket: the first captures on the card, then a
+# replay at the same scalars, at a hundredth of the time scale and at
+# another frame interval (time_scale > 1 throughout).
+BUCKET_CALLS = ((U238_TS, 1 / 60.0), (U238_TS, 1 / 60.0), (U238_TS / 100, 1 / 60.0),
+                (U238_TS, 1 / 30.0))
 
 
 def _aggregates(m) -> dict:
-    return {k: np.asarray(m[k]) for k in ("total_decay_counts", "total_alive", "survivors")}
+    return {k: m[k].cpu().numpy() for k in ("total_decay_counts", "total_alive", "survivors")}
 
 
 def _error(fn) -> str | None:
@@ -221,10 +234,119 @@ def case_checkpoint(world, out):
     return res
 
 
+def _graph_meshes(world, device):
+    """The meshes of the three frame factories on this world: ``data`` over
+    every rank, ``model`` over every rank, and the data x model split."""
+    return (make_mesh(device=device), make_mesh((world,), (MODEL_AXIS,), device=device),
+            make_mesh(_two_d(world), (DATA_AXIS, MODEL_AXIS), device=device))
+
+
+def factories_and_eager_forms(world, device, batch=8, steps=2):
+    """``{kind: (factory frame, its bare eager form, input state, the
+    rank's rows of the batch)}`` for the sharded, ring and hybrid frames of
+    U-238 at P=256 (4 x 64); the ring's one nucleus is every rank's."""
+    cfg = SimConfig.for_isotope(92, 146, pad_to=32)
+    data, model, two_d = _graph_meshes(world, device)
+    ring, ring_2d = make_ring_force_step(cfg, model), make_ring_force_step(cfg, two_d)
+    init = ensemble_init(cfg, batch, seed=5, device=device)
+    return {
+        "sharded": (make_sharded_frame_fn(cfg, steps, data),
+                    sharded_frame(lambda st, ts, fdt: ensemble_step(st, cfg, ts, fdt, steps),
+                                  cfg, data, DATA_AXIS),
+                    shard_ensemble(init, data), local_rows(data, batch)),
+        "ring": (make_ring_frame_fn(cfg, steps, model),
+                 lambda st, ts, fdt: simulate_frame(st, cfg, ts, fdt, steps, force_step_fn=ring),
+                 init_state(cfg, seed=5, device=device), slice(0, 1)),
+        "hybrid": (make_hybrid_frame_fn(cfg, steps, two_d),
+                   sharded_frame(lambda st, ts, fdt: ensemble_step(st, cfg, ts, fdt, steps,
+                                                                   force_step_fn=ring_2d),
+                                 cfg, two_d, DATA_AXIS),
+                   shard_ensemble(init, two_d), local_rows(two_d, batch)),
+    }
+
+
+def _launches():
+    return (force_step.launches, force_step.small_launches, overlap_step.launches)
+
+
+def factories_against_eager(world, device) -> dict:
+    """Each factory frame against its bare eager form over
+    :data:`BUCKET_CALLS`: the fields and metrics that differ (none, for
+    bitwise), the launch counts of both, the captures and buckets, and the
+    final state. On the card every call but a bucket's first, which
+    captures, runs under PyTorch's synchronisation check set to raise."""
+    res = {}
+    for kind, (fn, eager, init, rows) in factories_and_eager_forms(world, device).items():
+        got = want = init
+        differ, launches = [], []
+        for i, (ts, fdt) in enumerate(BUCKET_CALLS):
+            before = _launches()
+            want, wm = eager(want, ts, fdt)
+            mid = _launches()
+            if device == "cuda" and i:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, gm = fn(got, ts, fdt)
+            finally:
+                if device == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+            launches.append(([a - b for a, b in zip(_launches(), mid)],
+                             [a - b for a, b in zip(mid, before)]))
+            differ += [(i, f.name) for f in dataclasses.fields(got)
+                       if not torch.equal(getattr(got, f.name), getattr(want, f.name))]
+            differ += [(i, k) for k in wm if k not in gm or not torch.equal(gm[k], wm[k])]
+        res[kind] = {"differ": differ, "launches": launches, "captures": fn.graphs.captures,
+                     "buckets": len(fn.graphs.graphs), "state": state_to_numpy(got),
+                     "rows": rows, "bucket": fn.graphs.describe(fn.graphs.bucket(got, None, True))}
+    return res
+
+
+def case_graph_frames(world, out):
+    """The factories bitwise their bare eager forms: graph replays on the
+    cards (NCCL), the eager path on CPU tensors (gloo)."""
+    return factories_against_eager(world, DEVICE)
+
+
+def case_capture_safety(world, out):
+    """What the ring and hybrid graphs capture, the frame body with its
+    metrics, logged op by op at the scalars of each later call of
+    :data:`BUCKET_CALLS` (worlds of 1 and 2, ``model`` of the world's
+    size): the op sequences, collectives included, must be alike, with no
+    host read."""
+    if world > 2:
+        return "n/a"
+    res = {}
+    for kind, (fn, _, st, _) in factories_and_eager_forms(world, DEVICE, batch=2).items():
+        if kind == "sharded":
+            continue
+        g, logs = fn.graphs, []
+        for i, (ts, fdt) in enumerate(BUCKET_CALLS):
+            values, fast = scalar_values(frame_dynamics(g.cfg, ts, fdt, g.num_steps, None, None),
+                                         g.cfg)
+            # The first call is the warm-up: it puts the tables on the device.
+            with tp.OpLog() as log:
+                g.metrics(g.body(st, g.cfg, FrameScalars.views(torch.from_numpy(values), fast),
+                                 g.num_steps))
+            if i:
+                logs.append(log.ops)
+        differs = [(str(a), str(b)) for log in logs[1:] for a, b in zip(logs[0], log) if a != b]
+        names = [op[0] for op in logs[0]]
+        res[kind] = {
+            "lengths": [len(log) for log in logs],
+            "first_difference": differs[0] if differs else None,
+            "collectives": {n: names.count(n) for n in set(names) if n.startswith("c10d.")},
+            "host_reads": sum(op[0].startswith("aten._local_scalar_dense")
+                              for log in logs for op in log),
+        }
+    return res
+
+
 CASES = {name.removeprefix("case_"): fn for name, fn in globals().items()
          if name.startswith("case_")}
 # The cases an NCCL world on the cards runs.
-CARD_CASES = ("sharded_frame", "run", "decay", "ring_force", "hybrid", "checkpoint")
+CARD_CASES = ("sharded_frame", "run", "decay", "ring_force", "hybrid", "checkpoint",
+              "graph_frames")
 
 
 def gather(results, key):

@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pyqmd_tpu_torch.config import config_from_dict
 from pyqmd_tpu_torch.state import state_from_numpy, state_to_numpy
@@ -69,3 +70,34 @@ def batch_of_one(arrays: dict) -> dict:
 def to_port_single(st):
     """A lone (unbatched) JAX state as the port's batch of one on the CPU."""
     return state_from_numpy(batch_of_one(jax_to_numpy(st)), device="cpu")
+
+
+class OpLog(TorchDispatchMode):
+    """Every op dispatched, the process groups' collectives among them,
+    with its arguments: tensors as (shape, dtype, stride), TorchScript
+    objects (a process group, a reduce op) by their type, everything else
+    as it is; and the storages of the tensors read. A CUDA graph replays
+    the ops its capture saw with the arguments they had then, so two calls
+    of one bucket must log alike."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+        self.storages = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+
+        def sig(a):
+            if isinstance(a, torch.Tensor):
+                self.storages.add(a.untyped_storage().data_ptr())
+                return ("tensor", tuple(a.shape), a.dtype, a.stride())
+            if isinstance(a, torch.ScriptObject):
+                return ("script", a._type().qualified_name())
+            if isinstance(a, (list, tuple)):
+                return tuple(sig(x) for x in a)
+            return a
+
+        self.ops.append((str(func), sig(args), tuple(sorted((k, sig(v))
+                                                           for k, v in kwargs.items()))))
+        return func(*args, **kwargs)

@@ -615,6 +615,31 @@ def test_world_of_one_sharded_checkpoint(dev, world_of_one, tmp_path):
     _assert_states_equal(fn(back, 3.15576e16, 1 / 60.0)[0], fn(st, 3.15576e16, 1 / 60.0)[0])
 
 
+def _assert_graph_frames(res: dict) -> None:
+    """The worker's ``graph_frames`` case on the cards: every replay of
+    each factory bitwise its bare eager frame, one capture of one bucket,
+    the launch counters moved as eager's (the ring's hop replaces the
+    force kernel: overlap only), no synchronising call in a replay."""
+    for kind, r in res.items():
+        assert r["differ"] == [], (kind, r["differ"])
+        assert r["captures"] == r["buckets"] == 1, kind
+        for got, eager in r["launches"]:
+            assert got == eager, (kind, r["launches"])
+        assert r["launches"][-1][1] == [0 if kind != "sharded" else 2, 0, 1], kind
+
+
+def test_world_of_one_graph_frames_replay_the_eager_frames(dev, world_of_one):
+    """``make_sharded_frame_fn``, ``make_ring_frame_fn`` and
+    ``make_hybrid_frame_fn`` on NCCL rank 0 of 1: the ring's collectives
+    captured inside the graph, the aggregates reduced after the replay,
+    each replay bitwise the eager frame across a change of time scale and
+    frame interval."""
+    from _torch_dist_worker import factories_against_eager
+
+    _fresh_factories()
+    _assert_graph_frames(factories_against_eager(1, dev))
+
+
 @pytest.fixture(scope="module")
 def nccl_ranks(tmp_path_factory):
     """``tests/_torch_dist_worker.py`` over min(cards, 4) NCCL ranks, one
@@ -691,6 +716,19 @@ def test_nccl_ring_and_hybrid_match_the_kernel(dev, nccl_ranks):
             np.testing.assert_array_equal(got[f], dense[f], err_msg=(shape, f))
         for f in ("pos", "vel"):
             np.testing.assert_allclose(got[f], dense[f], atol=1e-4, rtol=1e-4, err_msg=str(shape))
+
+
+def test_nccl_graph_frames_replay_the_eager_frames(dev, nccl_ranks):
+    """The three factories over N cards: each rank's replays bitwise its
+    eager frames, the ring's exchanges and gathers inside the graph; the
+    ranks of a ``model`` group end with equal replicated fields."""
+    from _torch_dist_worker import gather
+
+    _, _, res = nccl_ranks
+    for r in res:
+        _assert_graph_frames(r["graph_frames"])
+    for kind in ("sharded", "ring", "hybrid"):
+        gather([r["graph_frames"][kind] for r in res], "state")
 
 
 def test_nccl_sharded_checkpoint(dev, nccl_ranks):

@@ -59,31 +59,6 @@ REGIMES = {
 }
 
 
-class _OpLog(TorchDispatchMode):
-    """Every aten op with its arguments: tensors as (shape, dtype, stride),
-    everything else as it is; and the storages of the tensors read."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-        self.storages = set()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-
-        def sig(a):
-            if isinstance(a, torch.Tensor):
-                self.storages.add(a.untyped_storage().data_ptr())
-                return ("tensor", tuple(a.shape), a.dtype, a.stride())
-            if isinstance(a, (list, tuple)):
-                return tuple(sig(x) for x in a)
-            return a
-
-        self.ops.append((str(func), sig(args), tuple(sorted((k, sig(v))
-                                                           for k, v in kwargs.items()))))
-        return func(*args, **kwargs)
-
-
 def _state(case, seed=0):
     (z, n), pad_to, b, steps = CASES[case]
     cfg = SimConfig.for_isotope(z, n, pad_to=pad_to)
@@ -117,7 +92,7 @@ def test_frame_body_ops_do_not_depend_on_the_frame_scalars(case, regime):
     _captured_part(states, cfg, *calls[0], steps, batched)  # the warm-up: tables on the device
     logs = []
     for values, fast in calls:
-        with _OpLog() as log:
+        with tp.OpLog() as log:
             _captured_part(states, cfg, values, fast, steps, batched)
         logs.append(log)
     assert len(logs[0].ops) > 100 * steps

@@ -117,6 +117,16 @@ _PROBE = textwrap.dedent(
     assert int(m["survivors"]) <= 8 and int(m["total_alive"]) == int(part.alive.sum())
     ring = parallel.make_ring_frame_fn(c14, 2, parallel.make_mesh((1,), ("model",), device="cpu"))
     assert ring(init_state(c14, device="cpu"), 1e11, 1.0)[0].pos.shape == (1, 16, 2)
+    # The sharded and hybrid frames too run eagerly on CPU tensors: nothing
+    # captured, no CUDA state.
+    frame = parallel.make_sharded_frame_fn(c14, 2, mesh)
+    hybrid = parallel.make_hybrid_frame_fn(
+        c14, 2, parallel.make_mesh((1, 1), ("data", "model"), device="cpu"))
+    for fn in (frame, hybrid):
+        st, m = fn(part, 1e11, 1.0)
+        assert st.pos.shape == (8, 16, 2) and int(m["survivors"]) <= 8
+    assert frame.graphs.captures == ring.graphs.captures == hybrid.graphs.captures == 0
+    assert not graphs._DEVICES and not torch.cuda.is_initialized()
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint_sharded(tmp, part, c14, mesh)
         back, _ = load_checkpoint_sharded(tmp, part, mesh)

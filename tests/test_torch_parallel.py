@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 import _torch_parity as tp
-from _torch_dist_worker import gather
+from _torch_dist_worker import _two_d, gather
 from pyqmd_tpu.config import SimConfig as JaxConfig
 from pyqmd_tpu.core.forces import force_step as jax_force_step
 from pyqmd_tpu.core.init import ensemble_init as jax_ensemble_init
@@ -415,6 +415,57 @@ def test_hybrid_frame_matches_dense_ensemble(ranks, jax_refs, world, shape):
             return tp.jax_to_numpy(st)
 
         assert_state(jax_refs("u238_hybrid", hybrid), got, RING_TOL)
+
+
+# --- the factories' frames: eager here, graph replays on the card ----------------
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("kind", ("sharded", "ring", "hybrid"))
+def test_frame_factories_are_their_bare_eager_forms(ranks, world, kind):
+    """``make_sharded_frame_fn``, ``make_ring_frame_fn`` and
+    ``make_hybrid_frame_fn`` on CPU tensors, over the calls of one graph
+    bucket (a change of time scale, then of frame interval): every field
+    and metric bitwise the bare eager forms (``sharded_frame`` around
+    ``ensemble_step``; ``simulate_frame`` / ``ensemble_step`` with the
+    ring step), no capture and no kernel launch; ranks that hold the same
+    rows end alike. A ring or hybrid bucket's name gives its group."""
+    res = [r["graph_frames"][kind] for r in ranks(world)]
+    model = world if kind == "ring" else _two_d(world)[1]
+    for rank, r in enumerate(res):
+        assert r["differ"] == []
+        assert r["captures"] == r["buckets"] == 0
+        assert r["launches"] == [([0, 0, 0], [0, 0, 0])] * 4
+        group = list(range(rank - rank % model, rank - rank % model + model))
+        assert r["bucket"].endswith(
+            "time_scale > 1)" if kind == "sharded" else f", model group of ranks {group} (gloo))"
+        ), r["bucket"]
+    whole = gather(res, "state")
+    assert whole["pos"].shape[0] == (1 if kind == "ring" else 8)
+
+
+@pytest.mark.parametrize("world", (1, 2))
+@pytest.mark.parametrize("kind", ("ring", "hybrid"))
+def test_ring_and_hybrid_frame_bodies_are_capture_safe(ranks, world, kind):
+    """What a ring or hybrid graph captures, the frame body with the ring
+    step and its metrics, runs the same ops with the same non-tensor
+    arguments, the ring's collectives among them, at 1e9 and 1e7 years per
+    second and at frame intervals of 1/60 and 1/30 s, and reads no tensor
+    to the host: so the graph captured at a bucket's first call replays
+    the later ones."""
+    steps = 2
+    for r in ranks(world):
+        got = r["capture_safety"][kind]
+        assert got["first_difference"] is None, got["first_difference"]
+        assert len(set(got["lengths"])) == 1 and got["lengths"][0] > 100 * steps
+        assert got["host_reads"] == 0
+        # Per substep: the alive count and the centre reduced, D - 1
+        # exchanges, one gather of the blocks.
+        want = {"c10d.allreduce_.default": 2 * steps, "c10d.allgather_.default": steps}
+        if world > 1:
+            want.update({"c10d.send.default": (world - 1) * steps,
+                         "c10d.recv_.default": (world - 1) * steps})
+        assert got["collectives"] == want
 
 
 # --- sharded checkpoints --------------------------------------------------------
