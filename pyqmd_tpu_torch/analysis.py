@@ -24,6 +24,7 @@ from pyqmd_tpu_torch.data.estimator import STABLE_THRESHOLD, bucket_params, stab
 from pyqmd_tpu_torch.data.halflives import HALF_LIVES
 from pyqmd_tpu_torch.data.tables import half_life_host
 from pyqmd_tpu_torch.state import DECAY_NONE
+from pyqmd_tpu_torch.utils.profiling import annotate, count
 
 
 @dataclasses.dataclass
@@ -108,19 +109,29 @@ def survival_curve(
     isotope trajectories equal the full-physics frame's bitwise.
     ``max_chain_log`` sizes the per-member chain-log ring; ``overrides``
     replaces SimConfig fields.
+
+    Spans: ``pyqmd.survival.setup`` (config, ``ensemble_init``, frame
+    function), ``pyqmd.survival.frame`` per frame call and
+    ``pyqmd.survival.readback`` per survivor count (and the decay totals at
+    the end), each readback one ``host.syncs`` on the card.
     """
-    hl, cfg, states, fn, sim_dt = _ensemble_setup(
-        z, n, batch, frames, half_lives, substeps, seed, pad_to,
-        decay_only, max_chain_log, overrides, device,
-    )
+    with annotate("pyqmd.survival.setup"):
+        hl, cfg, states, fn, sim_dt = _ensemble_setup(
+            z, n, batch, frames, half_lives, substeps, seed, pad_to,
+            decay_only, max_chain_log, overrides, device,
+        )
+    on_card = states.pos.is_cuda
 
     times = [0.0]
     survival = [1.0]
     m = None
     for f in range(frames):
-        states, m = fn(states, sim_dt, 1.0)
+        with annotate("pyqmd.survival.frame"):
+            states, m = fn(states, sim_dt, 1.0)
         # Reduced on the device: one scalar readback per frame.
-        alive = int(((m["z"] == z) & (m["n"] == n)).sum())
+        with annotate("pyqmd.survival.readback"):
+            count("host.syncs", on_card)
+            alive = int(((m["z"] == z) & (m["n"] == n)).sum())
         times.append((f + 1) * sim_dt)
         survival.append(alive / batch)
 
@@ -132,13 +143,16 @@ def survival_curve(
         fitted = math.inf
     else:
         fitted = math.log(2) * times[-1] / -math.log(max(s_end, 1e-12))
+    with annotate("pyqmd.survival.readback"):
+        count("host.syncs", on_card)
+        decay_counts = m["total_decay_counts"].cpu().numpy()
     return SurvivalResult(
         z=z,
         n=n,
         batch=batch,
         times=np.asarray(times),
         survival=np.asarray(survival),
-        decay_counts=m["total_decay_counts"].cpu().numpy(),
+        decay_counts=decay_counts,
         tabulated_half_life=hl,
         fitted_half_life=fitted,
     )
@@ -187,6 +201,7 @@ def chain_populations(
         eq = (m["z"][:, None] == node_z) & (m["n"][:, None] == node_n)
         counts = eq.sum(0)
         # One host transfer per frame: the node counts, then the rest.
+        count("host.syncs", counts.is_cuda)
         *counts, extra = torch.cat([counts, (m["z"].shape[0] - counts.sum())[None]]).tolist()
         times.append((f + 1) * sim_dt)
         for k, c in zip(keys, counts):

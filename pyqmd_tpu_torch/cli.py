@@ -97,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--profile", metavar="LOGDIR",
-        help="capture a torch.profiler trace of the run into LOGDIR/trace.json",
+        help="capture a torch.profiler trace of the run, the program's spans in it, into "
+             "LOGDIR/trace.json and the counters' growth into LOGDIR/counters.json",
     )
     p.add_argument(
         "--survival", metavar="CSV",

@@ -35,8 +35,12 @@ replayed:
   with k.
 
 Each replay adds the launches it holds to the kernels' counters, so they
-still count launches on the card. A failed capture or replay raises and
-names the bucket; nothing retries eagerly or on the CPU.
+still count launches on the card, and counts in ``graph.replays``; a
+capture counts in ``graph.captures``. The host's parts of a call are the
+spans ``pyqmd.graph.warm_up``, ``capture``, ``copy_in``, ``replay`` and
+``copy_out`` (:mod:`pyqmd_tpu_torch.utils.profiling`), all outside the
+captured body. A failed capture or replay raises and names the bucket;
+nothing retries eagerly or on the CPU.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 from pyqmd_tpu_torch.state import NucleusState
+from pyqmd_tpu_torch.utils.profiling import annotate, count
 
 FIELDS = tuple(f.name for f in dataclasses.fields(NucleusState))
 
@@ -163,11 +168,15 @@ class Graph:
     def replay(self, state: NucleusState, values: np.ndarray, frames: int):
         """``frames`` replays from ``state`` at the scalars ``values``."""
         try:
-            self.copy_in(state, values)
-            for _ in range(frames):
-                self.graph.replay()
-                _set_counters([a + d for a, d in zip(read_counters(), self.launches)])
-            return self.copy_out(state)
+            with annotate("pyqmd.graph.copy_in"):
+                self.copy_in(state, values)
+            with annotate("pyqmd.graph.replay"):
+                for _ in range(frames):
+                    self.graph.replay()
+                    _set_counters([a + d for a, d in zip(read_counters(), self.launches)])
+                    count("graph.replays")
+            with annotate("pyqmd.graph.copy_out"):
+                return self.copy_out(state)
         except ValueError:
             raise
         except Exception as e:
@@ -245,17 +254,18 @@ class FrameGraphs:
     def _warm_up(self, state: NucleusState, values: np.ndarray, fast: bool,
                  dev: _Device) -> NucleusState:
         """The call's first frame, eagerly, on the side stream."""
-        _build.library()
-        current = torch.cuda.current_stream()
-        dev.side.wait_stream(current)
-        with torch.cuda.stream(dev.side):
-            sc = FrameScalars.views(scalars_to_device(values, state.pos.device), fast)
-            out = self.body(state, self.cfg, sc, self.num_steps)
-        current.wait_stream(dev.side)
-        for f in FIELDS:
-            getattr(state, f).record_stream(dev.side)
-            getattr(out, f).record_stream(current)
-        return out
+        with annotate("pyqmd.graph.warm_up"):
+            _build.library()
+            current = torch.cuda.current_stream()
+            dev.side.wait_stream(current)
+            with torch.cuda.stream(dev.side):
+                sc = FrameScalars.views(scalars_to_device(values, state.pos.device), fast)
+                out = self.body(state, self.cfg, sc, self.num_steps)
+            current.wait_stream(dev.side)
+            for f in FIELDS:
+                getattr(state, f).record_stream(dev.side)
+                getattr(out, f).record_stream(current)
+            return out
 
     def _capture(self, template: NucleusState, fast: bool, key: tuple, dev) -> Graph:
         """Capture the frame (and its metrics where the graph holds them)
@@ -280,13 +290,15 @@ class FrameGraphs:
 
         before = read_counters()
         try:
-            graph = _record(frame, dev)
+            with annotate("pyqmd.graph.capture"):
+                graph = _record(frame, dev)
         except Exception as e:
             raise RuntimeError(f"capture of the frame graph of bucket {name} failed: {e}") from e
         finally:
             launches = [a - b for a, b in zip(read_counters(), before)]
             _set_counters(before)
         self.captures += 1
+        count("graph.captures")
         out, metrics = held["out"], held["metrics"]
         alias = {}
         for k, v in (metrics or {}).items():

@@ -24,6 +24,7 @@ from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core.forces import sqrt_rn
 from pyqmd_tpu_torch.data import tables
 from pyqmd_tpu_torch.state import DECAY_NONE, NEUTRON, PROTON, NucleusState, empty_state
+from pyqmd_tpu_torch.utils.profiling import annotate
 
 SHELL_CAPACITY = (2, 8, 20, 28, 50, 82, 126)
 _N_CANDIDATES = 20
@@ -176,33 +177,34 @@ def ensemble_init(
       * ``"auto"`` — exact when ``batch <= pool``, else pool.
 
     Either way every member gets an independent PRNG stream and half-life
-    draw.
+    draw. The call is the span ``pyqmd.init.ensemble``.
     """
-    if method == "auto":
-        method = "exact" if batch <= pool else "pool"
-    keys = prng.split(prng.prng_key(seed, device=device), batch)
-    if method == "exact":
-        return _init_from_key(cfg, keys)
-    if method != "pool":
-        raise ValueError(f"unknown init method {method!r}")
+    with annotate("pyqmd.init.ensemble"):
+        if method == "auto":
+            method = "exact" if batch <= pool else "pool"
+        keys = prng.split(prng.prng_key(seed, device=device), batch)
+        if method == "exact":
+            return _init_from_key(cfg, keys)
+        if method != "pool":
+            raise ValueError(f"unknown init method {method!r}")
 
-    pool_n = min(pool, batch)
-    # Pool geometry comes from the seed+1 stream, independent of members.
-    pool_keys = prng.split(prng.prng_key(seed + 1, device=device), pool_n)
-    pool_pos = _place_shells(cfg, prng.split(pool_keys, 4)[:, 1])  # (pool_n, P, 2)
-    origin = torch.tensor([cfg.origin_x, cfg.origin_y], dtype=torch.float32, device=device)
+        pool_n = min(pool, batch)
+        # Pool geometry comes from the seed+1 stream, independent of members.
+        pool_keys = prng.split(prng.prng_key(seed + 1, device=device), pool_n)
+        pool_pos = _place_shells(cfg, prng.split(pool_keys, 4)[:, 1])  # (pool_n, P, 2)
+        origin = torch.tensor([cfg.origin_x, cfg.origin_y], dtype=torch.float32, device=device)
 
-    k3 = prng.split(keys, 3)
-    k_sel, k_rot, k_member = k3[:, 0], k3[:, 1], k3[:, 2]
-    i = prng.randint(k_sel, (), 0, pool_n)
-    theta = prng.uniform(k_rot, maxval=2.0 * math.pi)
-    c, s = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
-    rel = pool_pos[i.to(torch.int64)] - origin
-    rot = torch.stack(
-        [rel[..., 0] * c - rel[..., 1] * s, rel[..., 0] * s + rel[..., 1] * c], dim=-1
-    )
-    st = _member_identity(cfg, k_member)
-    return st.replace(pos=torch.where(st.alive[..., None], origin + rot, origin))
+        k3 = prng.split(keys, 3)
+        k_sel, k_rot, k_member = k3[:, 0], k3[:, 1], k3[:, 2]
+        i = prng.randint(k_sel, (), 0, pool_n)
+        theta = prng.uniform(k_rot, maxval=2.0 * math.pi)
+        c, s = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+        rel = pool_pos[i.to(torch.int64)] - origin
+        rot = torch.stack(
+            [rel[..., 0] * c - rel[..., 1] * s, rel[..., 0] * s + rel[..., 1] * c], dim=-1
+        )
+        st = _member_identity(cfg, k_member)
+        return st.replace(pos=torch.where(st.alive[..., None], origin + rot, origin))
 
 
 def mixed_ensemble_init(

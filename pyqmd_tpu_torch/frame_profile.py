@@ -4,11 +4,10 @@
     python -m pyqmd_tpu_torch.frame_profile he4_full     # named slices only
 
 For each slice that ``chip_smoke.py`` runs: the frame's wall time over five
-frames, one frame under ``torch.profiler`` (device kernels, their summed
-time, and the card's idle share against the median frame), and the time
-of each part of the frame. Prints one JSON line per slice, after the
-card's name and power limit. On a CPU device the parts are host times and
-no idle share is given.
+frames, one frame under ``torch.profiler`` (device kernels and their summed
+time), and the time of each part of the frame. Prints one JSON line per
+slice, after the card's name and power limit. On a CPU device the parts
+are host times and no kernel time is given.
 
 - ``u238_full`` and ``he4_full``: the full-physics frame of a U-238
   ensemble (P=256, the tiled force kernel) and of a He-4 one (P=8, the
@@ -112,13 +111,10 @@ def _frame_profile(fn, states, args, device: torch.device):
 
 
 def _summary(cfg, batch, substeps, device, walls, n_kernels, kernel_ms, parts) -> dict:
-    median = sorted(walls)[len(walls) // 2]
     return {
         "z": cfg.z, "n": cfg.n, "B": batch, "P": cfg.max_particles, "substeps": substeps,
         "device": str(device), "frame_ms": walls, "profiled_kernels": n_kernels,
-        "profiled_kernel_ms": kernel_ms,
-        "idle_share": None if kernel_ms is None else 1.0 - kernel_ms / median,
-        "parts_ms": parts,
+        "profiled_kernel_ms": kernel_ms, "parts_ms": parts,
     }
 
 

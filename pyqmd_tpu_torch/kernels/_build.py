@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from pyqmd_tpu_torch.utils.profiling import annotate
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -75,8 +77,10 @@ def build() -> Path:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library, built on first call (span
+    ``pyqmd.build``: the nvcc build or the load)."""
+    with annotate("pyqmd.build"):
+        lib = ctypes.CDLL(str(build()))
     lib.pyqmd_force_step.argtypes = [_PTR] * 6 + [ctypes.c_int, ctypes.c_int] + [_PTR] * 3
     lib.pyqmd_force_step.restype = ctypes.c_int
     lib.pyqmd_force_step_small.argtypes = lib.pyqmd_force_step.argtypes

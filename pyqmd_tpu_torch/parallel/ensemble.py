@@ -27,6 +27,7 @@ import torch.distributed as dist
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core.step import decay_ensemble_step, make_frame_fn, make_run_fn
 from pyqmd_tpu_torch.parallel.mesh import DATA_AXIS
+from pyqmd_tpu_torch.utils.profiling import annotate
 
 if TYPE_CHECKING:
     from torch.distributed.device_mesh import DeviceMesh
@@ -36,22 +37,24 @@ def psum_aggregates(metrics: dict, cfg: SimConfig, group) -> dict:
     """Attach the cross-shard aggregates to per-shard metrics: decay counts
     and alive totals summed over ``group``, plus ``survivors`` (nuclei
     still in their initial isotope — the half-life statistics numerator).
-    All three are int32, reduced as one vector."""
-    if "total_decay_counts" not in metrics:  # raw state_metrics output
-        metrics["total_decay_counts"] = metrics["decay_counts"].sum(0, dtype=torch.int32)
-        metrics["total_alive"] = metrics["alive"].sum(dtype=torch.int32)
-    survivors = ((metrics["z"] == cfg.z) & (metrics["n"] == cfg.n)).sum(dtype=torch.int32)
-    packed = torch.cat([
-        metrics["total_decay_counts"].to(torch.int32),
-        metrics["total_alive"].to(torch.int32).reshape(1),
-        survivors.reshape(1),
-    ])
-    dist.all_reduce(packed, group=group)
-    k = metrics["total_decay_counts"].numel()
-    metrics["total_decay_counts"] = packed[:k]
-    metrics["total_alive"] = packed[k]
-    metrics["survivors"] = packed[k + 1]
-    return metrics
+    All three are int32, reduced as one vector, eagerly, in the span
+    ``pyqmd.ensemble.all_reduce``."""
+    with annotate("pyqmd.ensemble.all_reduce"):
+        if "total_decay_counts" not in metrics:  # raw state_metrics output
+            metrics["total_decay_counts"] = metrics["decay_counts"].sum(0, dtype=torch.int32)
+            metrics["total_alive"] = metrics["alive"].sum(dtype=torch.int32)
+        survivors = ((metrics["z"] == cfg.z) & (metrics["n"] == cfg.n)).sum(dtype=torch.int32)
+        packed = torch.cat([
+            metrics["total_decay_counts"].to(torch.int32),
+            metrics["total_alive"].to(torch.int32).reshape(1),
+            survivors.reshape(1),
+        ])
+        dist.all_reduce(packed, group=group)
+        k = metrics["total_decay_counts"].numel()
+        metrics["total_decay_counts"] = packed[:k]
+        metrics["total_alive"] = packed[k]
+        metrics["survivors"] = packed[k + 1]
+        return metrics
 
 
 def sharded_frame(local_fn, cfg: SimConfig, mesh: DeviceMesh, axis: str):

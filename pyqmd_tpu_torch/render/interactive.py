@@ -49,6 +49,7 @@ from pyqmd_tpu_torch.render.framebuffer import (
     to_rgb8,
 )
 from pyqmd_tpu_torch.state import PARTICLE_COLORS, NucleusState
+from pyqmd_tpu_torch.utils.profiling import annotate, count
 
 # Palette layout: 0 background, 1-6 particle colours, 7 proton highlight,
 # 8 neutron ring, 9 ruler, 10.. one entry per ejecta ring slot.
@@ -155,7 +156,9 @@ class _Landing:
 
     def array(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()  # this frame's copy only, not the stream
+            with annotate("pyqmd.reader.wait"):
+                count("host.syncs")
+                self.event.synchronize()  # this frame's copy only, not the stream
         return self.host.numpy()
 
 
@@ -180,6 +183,9 @@ class PipelinedFrameReader:
 
     For a CPU tensor there is no copy and no event: the frame is the
     tensor's own memory, and the same queue discipline holds.
+
+    Spans: ``pyqmd.reader.wait`` (the wait on a frame's event, one
+    ``host.syncs`` each) and ``pyqmd.reader.decode`` (``decode``).
     """
 
     def __init__(self, depth: int = 6, decode=unpack_frame) -> None:
@@ -217,7 +223,9 @@ class PipelinedFrameReader:
         fills, or when decode drops the frame)."""
         self._queue.append(self._land(frame))
         if len(self._queue) > self._depth:
-            return self._decode(self._queue.popleft().array())
+            landed = self._queue.popleft().array()
+            with annotate("pyqmd.reader.decode"):
+                return self._decode(landed)
         return None
 
     def flush(self) -> list[np.ndarray]:
@@ -225,7 +233,9 @@ class PipelinedFrameReader:
         Frames the decoder drops (None) are skipped."""
         out = []
         while self._queue:
-            rgb = self._decode(self._queue.popleft().array())
+            landed = self._queue.popleft().array()
+            with annotate("pyqmd.reader.decode"):
+                rgb = self._decode(landed)
             if rgb is not None:
                 out.append(rgb)
         return out

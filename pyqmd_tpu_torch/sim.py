@@ -39,7 +39,7 @@ from pyqmd_tpu_torch.data.elements import element_symbol, isotope_label
 from pyqmd_tpu_torch.state import DECAY_SYMBOLS, NucleusState
 from pyqmd_tpu_torch.utils.checkpoint import read_checkpoint, save_checkpoint
 from pyqmd_tpu_torch.utils.format import format_time_value_with_unit
-from pyqmd_tpu_torch.utils.profiling import StepTimer, fence
+from pyqmd_tpu_torch.utils.profiling import StepTimer, annotate, count, fence
 
 logger = logging.getLogger("pyqmd_tpu_torch")
 
@@ -371,29 +371,34 @@ class Simulation:
         with ``self.state`` still the pre-frame state. A periodic NaN guard
         logs numerical blowup instead of the reference's silent kernel-skip
         (nuclear_forces.py:222-224).
+
+        The call is the span ``pyqmd.sim.frame``; its waits on the card are
+        the spans ``pyqmd.sim.retire``, ``pyqmd.sim.nan_guard`` and
+        ``pyqmd.sim.chain_drain`` inside it.
         """
-        num_steps, eff_dt = self._schedule(frame_dt)
-        self.substeps_used = num_steps
-        if not self.batched and (
-            self._undrained_substeps + num_steps >= self.cfg.max_chain_log
-        ):
-            # Zero-loss log drain, checked BEFORE the frame is dispatched
-            # against THIS frame's actual substep count (auto-adjust frames
-            # can run up to 200 substeps, far past max_substeps): the
-            # pre-frame state holds every entry so far, so draining now
-            # guarantees the ring cannot wrap past unseen entries.
-            self._drain_chain_log()
-        fn = make_frame_fn(self.cfg, num_steps, batched=self.batched)
-        self.state, metrics = fn(
-            self.state, self.time_scale, frame_dt, eff_dt, self.physics_dt
-        )
-        self.frame_count += 1
-        self._retire(metrics, num_steps)
-        self._lerp_camera()
-        self.last_metrics = metrics
-        if not self.batched:
-            self._undrained_substeps += num_steps
-        return metrics
+        with annotate("pyqmd.sim.frame"):
+            num_steps, eff_dt = self._schedule(frame_dt)
+            self.substeps_used = num_steps
+            if not self.batched and (
+                self._undrained_substeps + num_steps >= self.cfg.max_chain_log
+            ):
+                # Zero-loss log drain, checked BEFORE the frame is dispatched
+                # against THIS frame's actual substep count (auto-adjust frames
+                # can run up to 200 substeps, far past max_substeps): the
+                # pre-frame state holds every entry so far, so draining now
+                # guarantees the ring cannot wrap past unseen entries.
+                self._drain_chain_log()
+            fn = make_frame_fn(self.cfg, num_steps, batched=self.batched)
+            self.state, metrics = fn(
+                self.state, self.time_scale, frame_dt, eff_dt, self.physics_dt
+            )
+            self.frame_count += 1
+            self._retire(metrics, num_steps)
+            self._lerp_camera()
+            self.last_metrics = metrics
+            if not self.batched:
+                self._undrained_substeps += num_steps
+            return metrics
 
     def _dispatch_marker(self, metrics: dict, num_steps: int) -> _InFlight:
         """Queue the frame's NaN flag for the host and mark the frame's end
@@ -429,8 +434,10 @@ class Simulation:
         self._inflight.append(self._dispatch_marker(metrics, num_steps))
         if len(self._inflight) == self._inflight.maxlen:
             old = self._inflight.popleft()
-            if old.event is not None:
-                fence(old.event)
+            with annotate("pyqmd.sim.retire"):
+                if old.event is not None:
+                    count("host.syncs")
+                    fence(old.event)
             if self._substep_timer.primed:
                 self._substep_timer.lap(None, steps=old.steps)
                 self._fps_timer.lap(None)
@@ -446,13 +453,15 @@ class Simulation:
             self._check_nan(self._inflight[0])  # oldest in flight
 
     def _check_nan(self, frame: _InFlight):
-        if frame.event is not None:
-            fence(frame.event)
-        if bool(frame.nan):
-            logger.error(
-                "non-finite state detected near frame %d (time scale %g)",
-                self.frame_count, self.time_scale,
-            )
+        with annotate("pyqmd.sim.nan_guard"):
+            if frame.event is not None:
+                count("host.syncs")
+                fence(frame.event)
+            if bool(frame.nan):
+                logger.error(
+                    "non-finite state detected near frame %d (time scale %g)",
+                    self.frame_count, self.time_scale,
+                )
 
     @property
     def fps(self) -> float:
@@ -512,33 +521,36 @@ class Simulation:
         and caches the ring by cursor, so one render+drain cycle costs one
         set of device transfers, not two. ``cursor`` passes an
         already-fetched chain cursor through (status() reads it in its
-        packed readback) to skip the scalar fetch."""
-        self._undrained_substeps = 0
-        entries = self.chain_entries(cursor=cursor)
-        if not entries:
-            return
-        cursor = entries[-1]["index"] + 1
-        if cursor == self._chain_seen:
-            return
-        cap = self.cfg.max_chain_log
-        if cursor - self._chain_seen > cap:
-            logger.warning(
-                "decay log: %d entries lost (chain ring of %d wrapped "
-                "between drains; raise SimConfig.max_chain_log to keep more)",
-                cursor - self._chain_seen - cap, cap,
-            )
-        for e in entries:
-            if e["index"] < self._chain_seen:
-                continue
-            line = (
-                f"DECAY: {isotope_label(*e['parent'])}"
-                f" → {isotope_label(*e['child'])}"
-                f" ({e['symbol']})"
-                f" after {format_time_value_with_unit(e['duration'])}"
-            )
-            self._decay_log.append(line)
-            logger.info(line)
-        self._chain_seen = cursor
+        packed readback) to skip the scalar fetch. The span
+        ``pyqmd.sim.chain_drain``, its readbacks included."""
+        with annotate("pyqmd.sim.chain_drain"):
+            count("sim.chain_drains")
+            self._undrained_substeps = 0
+            entries = self.chain_entries(cursor=cursor)
+            if not entries:
+                return
+            cursor = entries[-1]["index"] + 1
+            if cursor == self._chain_seen:
+                return
+            cap = self.cfg.max_chain_log
+            if cursor - self._chain_seen > cap:
+                logger.warning(
+                    "decay log: %d entries lost (chain ring of %d wrapped "
+                    "between drains; raise SimConfig.max_chain_log to keep more)",
+                    cursor - self._chain_seen - cap, cap,
+                )
+            for e in entries:
+                if e["index"] < self._chain_seen:
+                    continue
+                line = (
+                    f"DECAY: {isotope_label(*e['parent'])}"
+                    f" → {isotope_label(*e['child'])}"
+                    f" ({e['symbol']})"
+                    f" after {format_time_value_with_unit(e['duration'])}"
+                )
+                self._decay_log.append(line)
+                logger.info(line)
+            self._chain_seen = cursor
 
     @property
     def decay_log(self) -> list[str]:
@@ -564,10 +576,14 @@ class Simulation:
             )
         st = self.state
         if cursor is None:
+            if st.chain_cursor.is_cuda:
+                count("host.syncs")
             cursor = int(st.chain_cursor[0])
         if self._chain_cache is not None and self._chain_cache[0] == cursor:
             return self._chain_cache[1]
         cap = self.cfg.max_chain_log
+        if st.chain_cursor.is_cuda:
+            count("host.syncs")
         ring = _chain_pack(st).cpu().numpy()
         z0, n0, z1, n1, dt_ = ring[:5].tolist()
         tm = ring[5].view(np.float32).tolist()
@@ -594,6 +610,8 @@ class Simulation:
         panel), and each separate scalar fetch would wait for the stream
         again."""
         st = self.state
+        if st.pos.is_cuda:
+            count("host.syncs")
         if self.batched:
             agg = _status_pack_batched(st).cpu().numpy()
             return dict(

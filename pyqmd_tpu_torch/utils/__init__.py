@@ -1,6 +1,10 @@
-"""Utilities: formatting, checkpointing, profiling."""
+"""Utilities: formatting, checkpointing, profiling.
 
-from pyqmd_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+The checkpoint functions load on first use: the checkpoint module needs the
+parallel package, which needs the frames, and the frames need
+:mod:`pyqmd_tpu_torch.utils.profiling`.
+"""
+
 from pyqmd_tpu_torch.utils.format import (
     format_half_life,
     format_time_scale,
@@ -18,3 +22,11 @@ __all__ = [
     "parse_time_scale",
     "save_checkpoint",
 ]
+
+
+def __getattr__(name: str):
+    if name in ("load_checkpoint", "save_checkpoint"):
+        from pyqmd_tpu_torch.utils import checkpoint
+
+        return getattr(checkpoint, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -271,6 +271,17 @@ def test_cli_animation_montage_zoom_and_profile(tmp_path, capsys):
     assert capsys.readouterr().out.count("wrote") == 3
 
 
+def test_cli_profile_holds_the_program_spans_and_counters(tmp_path):
+    prof = tmp_path / "prof"
+    assert cli_main(CPU + ["--isotope", "C-14", "-q", "--frames", "3", "--profile",
+                           str(prof)]) == 0
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    names = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("pyqmd.sim.frame") == 3
+    grown = json.loads((prof / "counters.json").read_text())
+    assert grown["graph.replays"] == 0 and "kernels.force_step.launches" in grown
+
+
 def test_parser_describes_the_port():
     p = cli.build_parser()
     assert p.prog == "pyqmd-torch" and "PyTorch / CUDA" in p.description

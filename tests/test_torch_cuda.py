@@ -828,6 +828,45 @@ def test_graph_run_is_k_eager_frames(dev, zn, pad_to, b):
     assert run.graphs.captures == 1
 
 
+def test_graph_replay_spans_and_one_capture_per_bucket(dev):
+    """A replayed frame is the spans ``pyqmd.graph.copy_in``, ``replay`` and
+    ``copy_out``, the copies' device operations launched inside the copy
+    spans; ``graph.captures`` rises once per bucket and not on replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = _fresh_factories()
+    cfg = SimConfig.for_isotope(2, 2, pad_to=8)
+    fn = step.make_frame_fn(cfg, 20, True)
+    st = ensemble_init(cfg, 256, seed=3, device=dev)
+    before = profiling.counters()
+    st, _ = fn(st, 3.15576e16, 1 / 60)  # the warm-up frame, then the capture
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            st, _ = fn(st, 3.15576e16, 1 / 60)
+        torch.cuda.synchronize()
+    grown = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert grown["graph.captures"] == 1 and grown["graph.replays"] == 3
+    # each span twice: on the host, and as the device's range of its operations
+    spans = [(e.name, e.device_type) for e in prof.events() if e.name.startswith("pyqmd.")]
+    host = [n for n, d in spans if d == torch.autograd.DeviceType.CPU]
+    assert host == ["pyqmd.graph.copy_in", "pyqmd.graph.replay", "pyqmd.graph.copy_out"] * 3
+    assert sorted(n for n, d in spans if d != torch.autograd.DeviceType.CPU) == sorted(host)
+    fn(st, 0.5, 1 / 60)  # the other lifetime regime: a bucket of its own
+    assert profiling.counters()["graph.captures"] - before["graph.captures"] == 2
+
+
+def test_simulation_waits_on_the_card_are_counted(dev):
+    """Eight frames of one nucleus: the retire fence waits from the fourth
+    frame on, once a frame; no NaN guard and no drain fall in them."""
+    sim = Simulation(z=92, n=146, device=dev)
+    sim.set_preset("billion")
+    before = profiling.counters()
+    for _ in range(8):
+        sim.frame()
+    grown = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert grown["host.syncs"] == 5 and grown["sim.chain_drains"] == 0
+
+
 def test_graph_results_are_fresh_tensors(dev):
     """A returned state stays as it was after later replays."""
     step = _fresh_factories()

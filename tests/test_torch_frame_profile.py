@@ -15,7 +15,8 @@ def test_frame_breakdown_times_every_part_on_cpu():
     assert set(out["parts_ms"]) == {"clock", "clone", "pack", "decay_frame", "unpack",
                                     "metrics"}
     assert all(math.isfinite(v) and v > 0 for v in out["parts_ms"].values())
-    assert out["profiled_kernels"] == 0 and out["idle_share"] is None
+    assert out["profiled_kernels"] == 0 and out["profiled_kernel_ms"] is None
+    assert "idle_share" not in out
     assert [s[0] for s in frame_profile.SLICES] == ["c14_survival", "u238_chain"]
 
 
@@ -33,5 +34,6 @@ def test_full_frame_breakdown_times_every_part_on_cpu():
     assert set(out["parts_ms"]) == {"key_tree", "ejecta_decay_x2", "force_kernel_x2",
                                     "overlap", "metrics"}
     assert all(math.isfinite(v) and v > 0 for v in out["parts_ms"].values())
-    assert out["profiled_kernels"] == 0 and out["idle_share"] is None
+    assert out["profiled_kernels"] == 0 and out["profiled_kernel_ms"] is None
+    assert "idle_share" not in out
     assert [s[0] for s in frame_profile.FULL_SLICES] == ["u238_full", "he4_full"]

@@ -366,6 +366,35 @@ def test_capture_and_replay_plumbing(monkeypatch, case):
         g.replay(ensemble_init(cfg, st0.batch + 1, device="cpu"), v1, 1)
 
 
+def test_capture_and_replay_spans_and_counters(monkeypatch):
+    """A capture counts once in ``graph.captures`` inside the span
+    ``pyqmd.graph.capture``; each replay call is the spans ``copy_in``,
+    ``replay`` and ``copy_out`` side by side and counts each of its
+    replays in ``graph.replays``, never a capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyqmd_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(graphs, "_record", lambda fn, dev: _CpuGraph(fn))
+    cfg, st0, steps = _state("he4")
+    metrics = functools.partial(step._metrics, batched=True)
+    run = graphs.FrameGraphs(cfg, steps, step.frame_body, metrics, 3, graph_metrics=False)
+    values, fast = scalar_values(
+        frame_dynamics(cfg, *REGIMES["fast"][0][:2], steps, None, cfg.physics_dt), cfg)
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        g = run._capture(st0, fast, run.bucket(st0, cfg.physics_dt, fast), None)
+        st, _ = g.replay(st0, values, 3)
+        g.replay(st, values, 3)
+    grown = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert grown["graph.captures"] == 1 and grown["graph.replays"] == 6
+    spans = [(e.name, e.cpu_parent.name if e.cpu_parent else None)
+             for e in prof.events() if e.name.startswith("pyqmd.graph.")]
+    assert spans == [("pyqmd.graph.capture", None)] + [
+        ("pyqmd.graph.copy_in", None), ("pyqmd.graph.replay", None),
+        ("pyqmd.graph.copy_out", None)] * 2
+
+
 def test_a_failed_capture_names_the_bucket(monkeypatch):
     def refuse(fn, dev):
         raise RuntimeError("operation not permitted when stream is capturing")

@@ -307,6 +307,27 @@ def test_ring_of_host_buffers_is_allocated_once_and_a_frame_is_valid_until_the_n
     assert len(set(_pinned_buffers(reader))) == 2 * (depth + 1)
 
 
+def test_reader_waits_and_decodes_are_spans_and_each_wait_a_sync(ring_on_the_cpu):
+    """``pyqmd.reader.wait`` (one ``host.syncs`` each) then
+    ``pyqmd.reader.decode``, side by side, per frame handed out, from
+    ``submit`` and from ``flush``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyqmd_tpu_torch.utils import profiling
+
+    reader = PipelinedFrameReader(depth=2, decode=lambda a: a.copy())
+    frame = ring_on_the_cpu(torch.zeros(4, 3, dtype=torch.uint8))
+    syncs = profiling.counters()["host.syncs"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(5):
+            reader.submit(frame)
+        reader.flush()
+    spans = [(e.name, e.cpu_parent.name if e.cpu_parent else None)
+             for e in prof.events() if e.name.startswith("pyqmd.")]
+    assert spans == [("pyqmd.reader.wait", None), ("pyqmd.reader.decode", None)] * 5
+    assert profiling.counters()["host.syncs"] - syncs == _Event.waits == 5
+
+
 def test_unpacked_frames_outlive_the_ring(ring_on_the_cpu):
     """The default decoder gathers into a new array: frames handed out stay
     valid however many submits follow."""
