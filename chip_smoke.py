@@ -20,11 +20,16 @@ nonzero, and nothing catches it:
 4. the full-physics slices: a U-238 ensemble of 10240 nuclei (the tiled
    force kernel) and a He-4 one of 10240 (the sub-warp kernel, no decay),
    3 frames of 20 substeps each at 1e9 years per second, with launch
-   counts, decays and NaNs checked, and the rate in nucleus-substeps/s;
+   counts (the substep kernel's one a substep among them), decays and NaNs
+   checked, and the rate in nucleus-substeps/s;
    then each kernel's and plain version's time per call at the slices'
-   shapes (the U-238 plain versions on a sub-batch of 1024 nuclei), and
-   the sub-warp kernel at He-4 B=1,048,576, each beside its bound (below)
-   and its launches per frame;
+   shapes (the U-238 force and overlap plain versions on a sub-batch of
+   1024 nuclei), and the sub-warp kernel at He-4 B=1,048,576, each beside
+   its bound (below) and its launches per frame; the substep kernel on the
+   U-238 slice's own state (two substeps against the plain ones on the
+   card: integers, clock and decay floats and velocities bitwise, fragment
+   positions within 1e-4), its time alone, the frame's clone of what it
+   writes, and its mean time inside a replayed frame under the profiler;
 5. the same seed on the CPU (plain versions) and on the card (kernels),
    one frame of U-238 and of He-4: integer fields and RNG streams bitwise,
    pos/vel within 1e-3;
@@ -214,12 +219,18 @@ from pyqmd_tpu_torch.core import decay as plain_decay
 from pyqmd_tpu_torch.core import forces as plain_forces
 from pyqmd_tpu_torch.core import overlap as plain_overlap
 from pyqmd_tpu_torch.core import graphs, step
-from pyqmd_tpu_torch.core.dynamics import FrameDynamics, frame_dynamics, scalar_values
+from pyqmd_tpu_torch.core.dynamics import (
+    FrameDynamics,
+    frame_dynamics,
+    frame_scalars,
+    scalar_values,
+)
 from pyqmd_tpu_torch.frame_profile import device_ms
 from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import SMALL_MAX_PARTICLES, force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
+from pyqmd_tpu_torch.kernels.substep import SUBSTEP_FIELDS, ejecta_decay_substep
 from pyqmd_tpu_torch.parallel import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -486,16 +497,17 @@ def phase_slice(smi: str) -> list:
     torch.cuda.synchronize()
 
     force_step.launches = force_step.small_launches = 0
-    overlap_step.launches = 0
+    overlap_step.launches = ejecta_decay_substep.launches = 0
     t0 = time.perf_counter()
     for _ in range(FRAMES):
         states, metrics = fn(states, TIME_SCALE, FRAME_DT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"force_step": force_step.launches, "overlap_step": overlap_step.launches,
-                "force_step_small": force_step.small_launches}
+                "force_step_small": force_step.small_launches,
+                "ejecta_decay_substep": ejecta_decay_substep.launches}
 
-    assert launches["force_step"] == FRAMES * steps, launches
+    assert launches["force_step"] == launches["ejecta_decay_substep"] == FRAMES * steps, launches
     assert launches["force_step_small"] == 0, launches
     assert launches["overlap_step"] == FRAMES * cfg.overlap_iterations, launches
     assert not bool(metrics["nan"].any()), "NaN in the ensemble"
@@ -550,6 +562,11 @@ def phase_slice(smi: str) -> list:
                       "bound_full_B": ob_full, "share_full_B": share(ob_full, k_ov_full),
                       "ms_sub_B": k_ov, "plain_ms_sub_B": p_ov, "bound_sub_B": ob_sub,
                       "pairs_in_range_full_B": in_range}})
+    substep = _substep_kernel(cfg, states, steps, launches["ejecta_decay_substep"], smi)
+    states, _ = fn(states, TIME_SCALE, FRAME_DT)  # a replayed frame, traced
+    substep.update(_in_frame_ms(lambda: fn(states, TIME_SCALE, FRAME_DT),
+                                "ejecta_decay_substep_kernel", steps, substep["bound_ms"]))
+    emit({"phase": "substep_kernel", "card": smi, **substep})
     return [
         {"name": "force", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/forces.cu",
          "replaces": "pyqmd_tpu/kernels/forces_pallas.py:236",
@@ -564,11 +581,81 @@ def phase_slice(smi: str) -> list:
          "max_abs_err": ov_err, "ms": k_ov, "plain_ms": p_ov, "bound_ms": ob_sub["bound_ms"],
          "bound_by": ob_sub["bound_by"], "share": share(ob_sub, k_ov), "library_ms": None,
          "B": SUB_B, "ms_full_B": k_ov_full, "bound_ms_full_B": ob_full["bound_ms"]},
+        substep,
     ]
 
 
 def share(b: dict, ms: float) -> float:
     return b["bound_ms"] / ms
+
+
+def _substep_kernel(cfg, states, steps: int, launches: int, smi: str) -> dict:
+    """The substep kernel on the slice's own state: two substeps in place
+    on a copy, each against the plain ``advance_ejecta`` + ``maybe_decay``
+    on the card from the same state and key (integers, the clock's and the
+    decay engine's floats and every velocity bitwise, ``ej_pos`` within
+    EXACT_TOL: a fragment sits at a centre of mass summed in another
+    order); then the time of one launch alone, in place, of the plain
+    version, and of the frame's clone of the fields the kernel writes, at
+    the slice's B; the kernel's entry of the summary."""
+    sc = frame_scalars(frame_dynamics(cfg, TIME_SCALE, FRAME_DT, steps, None, cfg.physics_dt),
+                       cfg, DEV)
+    k3 = prng.split(states.rng, 3)
+    want = states
+    got = states.replace(**{f: getattr(states, f).clone() for f in SUBSTEP_FIELDS})
+    err, fired = 0.0, 0
+    for s in range(2):
+        keys = prng.split(k3[:, 0], steps)[:, s]
+        prev = want
+        want = plain_decay.maybe_decay(plain_decay.advance_ejecta(want, cfg, sc), cfg, keys,
+                                       sc)[0]
+        assert ejecta_decay_substep(got, cfg, sc, k3, s) is got
+        for f in INT_FIELDS + STATS_FLOATS + ("ej_age", "ej_life", "vel", "ej_vel", "pos",
+                                              "time_passed"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (s, f)
+        err = max(err, max_diff(got.ej_pos, want.ej_pos))
+        fired += int((want.chain_cursor != prev.chain_cursor).sum())
+    assert err <= EXACT_TOL, err
+    assert fired > 0, "no decay fired in the compared substeps"
+
+    k_ms = device_ms(lambda: ejecta_decay_substep(got, cfg, sc, k3, 5), DEV, 50)
+    p_ms = device_ms(lambda: plain_decay.maybe_decay(
+        plain_decay.advance_ejecta(states, cfg, sc), cfg, keys, sc), DEV, 5)
+    clone_ms = device_ms(
+        lambda: [getattr(states, f).clone() for f in SUBSTEP_FIELDS], DEV, 20)
+    # What every nucleus moves: its ring read (pos 8, vel 8, type 4, age 4,
+    # life 4, alive 1 bytes a slot) and written back (pos, age, alive: 13),
+    # and half_life, z, n, ej_cursor and k3[:, 0] (32); two threefry hashes.
+    b = states.batch
+    sb = bound(b * (cfg.max_ejecta * (29 + 13) + 32), int_ops=2 * THREEFRY_INT_OPS * b)
+    return {"name": "substep", "route": "cuda", "source": "pyqmd_tpu_torch/csrc/substep.cu",
+            "replaces": "none", "launches": launches, "launches_per_frame": steps,
+            "max_abs_err": err, "decays_compared": fired, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"], "share": share(sb, k_ms),
+            "library_ms": None, "B": b, "clone_ms_per_frame": clone_ms}
+
+
+def _in_frame_ms(call, kernel: str, per_call: int, bound_ms: float) -> dict:
+    """One ``call`` under ``torch.profiler``: the launches of ``kernel``
+    in its trace (``per_call`` of them) and their mean device ms, beside
+    ``bound_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    durs = [e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and kernel in e.get("name", "")]
+    assert len(durs) == per_call, (kernel, len(durs))
+    ms = sum(durs) / len(durs) / 1e3
+    return {"in_frame_launches": len(durs), "in_frame_ms": ms,
+            "in_frame_share": bound_ms / ms}
 
 
 def phase_he4_slice(smi: str) -> dict:
@@ -583,15 +670,17 @@ def phase_he4_slice(smi: str) -> dict:
     torch.cuda.synchronize()
 
     force_step.launches = force_step.small_launches = 0
-    overlap_step.launches = 0
+    overlap_step.launches = ejecta_decay_substep.launches = 0
     t0 = time.perf_counter()
     for _ in range(FRAMES):
         states, metrics = fn(states, TIME_SCALE, FRAME_DT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"force_step": force_step.launches, "force_step_small": force_step.small_launches,
-                "overlap_step": overlap_step.launches}
+                "overlap_step": overlap_step.launches,
+                "ejecta_decay_substep": ejecta_decay_substep.launches}
     assert launches["force_step_small"] == launches["force_step"] == FRAMES * steps, launches
+    assert launches["ejecta_decay_substep"] == FRAMES * steps, launches
     assert launches["overlap_step"] == FRAMES * cfg.overlap_iterations, launches
     assert not bool(metrics["nan"].any()), "NaN in the He-4 ensemble"
     assert int(metrics["total_decay_counts"].sum()) == 0, "a stable nucleus decayed"
@@ -1025,20 +1114,22 @@ def phase_sim_ensemble(smi: str, z: int, n: int, pad_to: int) -> dict:
     bare_ms = [bare_ms_per_frame()]
 
     force_step.launches = force_step.small_launches = 0
-    overlap_step.launches = 0
+    overlap_step.launches = ejecta_decay_substep.launches = 0
     per_frame = []
     t0 = time.perf_counter()
     for _ in range(SIM_FRAMES):
-        before = (force_step.launches, overlap_step.launches)
+        before = (force_step.launches, overlap_step.launches, ejecta_decay_substep.launches)
         sim.frame()
-        per_frame.append((force_step.launches - before[0], overlap_step.launches - before[1]))
+        per_frame.append((force_step.launches - before[0], overlap_step.launches - before[1],
+                          ejecta_decay_substep.launches - before[2]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"force_step": force_step.launches, "force_step_small": force_step.small_launches,
-                "overlap_step": overlap_step.launches}
+                "overlap_step": overlap_step.launches,
+                "ejecta_decay_substep": ejecta_decay_substep.launches}
     steps = sim.substeps_used
     assert steps == 20, steps
-    assert per_frame == [(steps, 1)] * SIM_FRAMES, per_frame
+    assert per_frame == [(steps, 1, steps)] * SIM_FRAMES, per_frame
     assert launches["force_step_small"] == (launches["force_step"] if small else 0), launches
     assert len(sim._inflight) == 3 and all(f.event.query() for f in sim._inflight)
 
@@ -1088,13 +1179,14 @@ def phase_sim_ensemble(smi: str, z: int, n: int, pad_to: int) -> dict:
     fused = Simulation(z=z, n=n, ensemble=SLICE_B, pad_to=pad_to, seed=0, device=DEV)
     fused.set_preset("billion")
     force_step.launches = force_step.small_launches = 0
-    overlap_step.launches = 0
+    overlap_step.launches = ejecta_decay_substep.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = fused.run(SIM_FRAMES + 1, fused=True)
     torch.cuda.synchronize()
     fused_wall = time.perf_counter() - t0
-    assert force_step.launches == (SIM_FRAMES + 1) * steps, force_step.launches
+    assert force_step.launches == ejecta_decay_substep.launches == (SIM_FRAMES + 1) * steps, (
+        force_step.launches, ejecta_decay_substep.launches)
     assert overlap_step.launches == SIM_FRAMES + 1, overlap_step.launches
     for f in dataclasses.fields(st):
         assert torch.equal(getattr(fused.state, f.name), getattr(st, f.name)), (
@@ -1128,7 +1220,7 @@ def phase_sim_single(smi: str) -> None:
     cpu = Simulation(z=92, n=146, seed=0, pad_to=128, device="cpu")
     card = Simulation(z=92, n=146, seed=0, pad_to=128, device=DEV)
     first_out, worst_in = None, 0.0
-    force_step.launches = 0
+    force_step.launches = ejecta_decay_substep.launches = 0
     for s in (cpu, card):
         s.set_preset("billion")
     for f in range(frames):
@@ -1142,7 +1234,8 @@ def phase_sim_single(smi: str) -> None:
             else:
                 first_out = f + 1
     assert first_out is None or first_out > 1, "the first frame already differs"
-    assert force_step.launches == frames * 20, force_step.launches
+    assert force_step.launches == ejecta_decay_substep.launches == frames * 20, (
+        force_step.launches, ejecta_decay_substep.launches)
     for s in (cpu, card):
         s.force_decay()
     a, c = state_to_numpy(cpu.state), state_to_numpy(card.state)
@@ -1476,6 +1569,7 @@ def _read_stream(server, seconds: float, parts: list) -> None:
 
 def _zero_view_counts() -> None:
     force_step.launches = force_step.small_launches = overlap_step.launches = 0
+    ejecta_decay_substep.launches = 0
 
 
 def phase_viewer(smi: str) -> dict:
@@ -1516,7 +1610,8 @@ def phase_viewer(smi: str) -> dict:
             pumped = sim.frame_count - frames_before
             launches = {"force_step": force_step.launches,
                         "force_step_small": force_step.small_launches,
-                        "overlap_step": overlap_step.launches}
+                        "overlap_step": overlap_step.launches,
+                        "ejecta_decay_substep": ejecta_decay_substep.launches}
             steps = sim.substeps_used
     finally:
         server.close()
@@ -1525,6 +1620,7 @@ def phase_viewer(smi: str) -> dict:
     assert steps == 20 and pumped >= 2, (steps, pumped)
     assert launches["force_step"] == pumped * steps and launches["force_step_small"] == 0, launches
     assert launches["overlap_step"] == pumped * sim.cfg.overlap_iterations, launches
+    assert launches["ejecta_decay_substep"] == pumped * steps, launches
     both = set(readers[0]) & set(readers[1])
     distinct = len(set(readers[0]) | set(readers[1]))
     assert len(both) >= 2, (len(readers[0]), len(readers[1]), len(both))
@@ -1573,10 +1669,11 @@ def phase_viewer(smi: str) -> dict:
     server.start_background()
     try:
         assert _http_error(server, "/control?do=decay") == 400
-        before = force_step.launches
+        before = (force_step.launches, ejecta_decay_substep.launches)
         seq, png, _ = server.pump_frame(-1)
         assert seq == 1 and _png_dimensions(png) == (800, 600)
-        assert force_step.launches - before == ens.substeps_used == 20
+        assert (force_step.launches - before[0] == ejecta_decay_substep.launches - before[1]
+                == ens.substeps_used == 20)
         status = _http_status(server)
         assert status["ensemble"] == SLICE_B and status["alive"] > 0, status
     finally:
@@ -1765,18 +1862,19 @@ def phase_sharded(smi: str) -> dict:
     world, backend = dist.get_world_size(), dist.get_backend()
     assert (world, backend) == (1, "nccl"), (world, backend)
     where = {"world": world, "backend": backend, "card": smi}
-    launches = dict.fromkeys(("force", "force_small", "overlap", "decay_stats"), 0)
+    launches = dict.fromkeys(("force", "force_small", "overlap", "decay_stats", "substep"), 0)
     last = {}
 
     def sharded(fn, *args):
         """A call of the sharded path, its kernel launches counted (and
         kept in ``last``)."""
         force_step.launches = force_step.small_launches = 0
-        overlap_step.launches = decay_stats_frame.launches = 0
+        overlap_step.launches = decay_stats_frame.launches = ejecta_decay_substep.launches = 0
         out = fn(*args)
         last.update(force=force_step.launches - force_step.small_launches,
                     force_small=force_step.small_launches, overlap=overlap_step.launches,
-                    decay_stats=decay_stats_frame.launches)
+                    decay_stats=decay_stats_frame.launches,
+                    substep=ejecta_decay_substep.launches)
         for k in launches:
             launches[k] += last[k]
         return out
@@ -1835,6 +1933,7 @@ def phase_sharded(smi: str) -> dict:
             for i, (ts, fdt) in enumerate(BUCKET_CALLS):
                 a, m = graph_call(frame, i, a, ts, fdt)
                 per_frame = dict(last)
+                assert per_frame["substep"] == steps, (isotope, i, per_frame)
                 e, me = sharded(eager, e, ts, fdt)
                 assert last == per_frame, (isotope, i, last, per_frame)
                 # The sharded frames pass no raw physics dt, as the reference's do.
@@ -1992,6 +2091,7 @@ def phase_sharded(smi: str) -> dict:
         # The ring replaces the force kernel; the overlap kernel still runs.
         assert per_frame["force"] == 0 and per_frame["overlap"] == exact.overlap_iterations, (
             name, per_frame)
+        assert per_frame["substep"] == RING_STEPS, (name, per_frame)
         pool = _pool_bytes()
         ms, last_states = turns({"eager": eager, "graph": frame}, ("eager", "graph", "eager"), st)
         _states_equal(last_states["graph"], last_states["eager"], f"{name} turns")
@@ -2046,7 +2146,8 @@ def _pool_bytes() -> int:
 
 
 def _counts() -> tuple:
-    return (force_step.launches, force_step.small_launches, overlap_step.launches)
+    return (force_step.launches, force_step.small_launches, overlap_step.launches,
+            ejecta_decay_substep.launches)
 
 
 def _graph_case(name, zn, pad_to, b, capture_s: list, smi: str) -> dict:
@@ -2095,7 +2196,7 @@ def _graph_case(name, zn, pad_to, b, capture_s: list, smi: str) -> dict:
         assert set(gm) == set(em) and all(torch.equal(gm[k], em[k]) for k in em), (name, i)
         per_frame = graph_counts
     assert fn.graphs.captures == 1 and len(capture_s) == 1, (name, capture_s)
-    assert per_frame[0] == 20 and per_frame[2] == 1, per_frame
+    assert per_frame[0] == per_frame[3] == 20 and per_frame[2] == 1, per_frame
     assert per_frame[1] == (20 if cfg.max_particles <= SMALL_MAX_PARTICLES else 0), per_frame
 
     # The fused run of three frames: its first call (the eager frame, the
@@ -2187,8 +2288,8 @@ def _graph_case(name, zn, pad_to, b, capture_s: list, smi: str) -> dict:
             "replays_bitwise_eager": len(calls), "time_scales": sorted({c[0] for c in calls}),
             "frame_dts": sorted({c[1] for c in calls}), "fused_run_bitwise_eager": 2,
             "captures_frame_fn": fn.graphs.captures, "captures_run_fn": run.graphs.captures,
-            "launches_per_frame": dict(zip(("force_step", "force_step_small", "overlap_step"),
-                                           per_frame)),
+            "launches_per_frame": dict(zip(("force_step", "force_step_small", "overlap_step",
+                                            "ejecta_decay_substep"), per_frame)),
             "synchronising_calls_in_a_replay": 0, "synchronising_calls_in_3_sim_frames": 0,
             "eager_ms_per_frame": eager_ms, "graph_ms_per_frame": graph_ms,
             "sim_frame_ms_per_frame": sim_ms,
@@ -2262,10 +2363,13 @@ def main() -> int:
     by_name["overlap"]["sim_launches"] = u238["overlap_step"] + he4["overlap_step"]
     by_name["force_small"]["sim_launches"] = he4["force_step_small"]
     by_name["decay_stats"]["sim_launches"] = cli_decay_launches  # --survival, --populations
+    by_name["substep"]["sim_launches"] = (u238["ejecta_decay_substep"]
+                                          + he4["ejecta_decay_substep"])
     by_name["force"]["view_launches"] = view["force_step"]
     by_name["overlap"]["view_launches"] = view["overlap_step"]
     by_name["force_small"]["view_launches"] = view["force_step_small"]
     by_name["decay_stats"]["view_launches"] = view_decay_launches  # examples_torch/survival_curve.py
+    by_name["substep"]["view_launches"] = view["ejecta_decay_substep"]
     for name, count in sharded.items():
         by_name[name]["sharded_launches"] = count
     assert all(k["launches"] > 0 and k["sim_launches"] > 0 and k["view_launches"] > 0

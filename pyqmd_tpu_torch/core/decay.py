@@ -16,6 +16,10 @@ Two forms share the transition:
   reads only the first four uniforms, so isotope trajectories equal the
   full form's bitwise. It is the plain version of the decay kernel
   (``pyqmd_tpu_torch/kernels/decay.py``).
+
+:func:`advance_ejecta` moves, ages and expires the ejecta ring before each
+substep's decay check; with :func:`maybe_decay` it is the plain version of
+the full-physics substep kernel (``pyqmd_tpu_torch/kernels/substep.py``).
 """
 
 from __future__ import annotations
@@ -383,6 +387,28 @@ def _ejecta_updates(state, cfg, dyn, u, eff, dtype, new_alive) -> dict:
         ej_alive=ej_set(state.ej_alive, torch.ones_like(frag_active)),
         ej_cursor=state.ej_cursor + frag_active.to(torch.int32).sum(-1, dtype=torch.int32),
     )
+
+
+def advance_ejecta(state: NucleusState, cfg: SimConfig, dyn) -> NucleusState:
+    """Ejecta advection + ageing + expiry (nuclear_sim.py:178-210).
+
+    Animated decay products (alpha/e-/gamma/e+) move at a fixed animation
+    timestep with substep-compensated speed and age with the reference's
+    time-scale-damped rate; emitted nucleons advect with
+    ``dt * sqrt(time_scale)`` and never expire. ``dyn`` is the frame's
+    :class:`FrameScalars` or its :class:`FrameDynamics`.
+    """
+    sc = as_scalars(dyn, cfg, state.ej_pos.device)
+    is_anim = state.ej_type >= ALPHA
+    step = torch.where(is_anim, sc.anim_step, sc.nucleon_step)
+
+    live = state.ej_alive
+    new_pos = state.ej_pos + state.ej_vel * torch.where(live, step, 0.0)[..., None]
+
+    age_inc = torch.where(is_anim, sc.anim_age_inc, sc.step_time)
+    new_age = state.ej_age + torch.where(live, age_inc, 0.0)
+    expired = is_anim & (new_age >= state.ej_life)
+    return state.replace(ej_pos=new_pos, ej_age=new_age, ej_alive=live & ~expired)
 
 
 def maybe_decay(

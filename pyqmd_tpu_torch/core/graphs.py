@@ -9,11 +9,11 @@ frames of :mod:`pyqmd_tpu_torch.parallel`; the ring and hybrid frames hold
 their NCCL collectives inside the graph, as the JAX package's ``shard_map``
 programs hold theirs (``pyqmd_tpu/parallel/ensemble.py:69``,
 ``ring.py:118``). On CPU tensors it runs the
-frame eagerly. On the card a frame issues ~9,400 launches from the host,
-and the host's time, not the card's, sets its length; so each graph bucket
-(batch size, device, whether ``raw_physics_dt`` is None, and the
-``time_scale > 1`` regime of the ejecta lifetime) is captured once and
-replayed:
+frame eagerly. On the card a frame issues ~800 launches from the host,
+and for a small batch the host's time, not the card's, sets its length; so
+each graph bucket (batch size, device, whether ``raw_physics_dt`` is None,
+and the ``time_scale > 1`` regime of the ejecta lifetime) is captured once
+and replayed:
 
 * The first call of a bucket runs its first frame eagerly on a side
   stream (the warm-up: it builds the kernel library, copies the constant
@@ -63,6 +63,7 @@ from pyqmd_tpu_torch.core.dynamics import (
 from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
+from pyqmd_tpu_torch.kernels.substep import ejecta_decay_substep
 from pyqmd_tpu_torch.state import NucleusState
 from pyqmd_tpu_torch.utils.profiling import annotate, count
 
@@ -70,7 +71,7 @@ FIELDS = tuple(f.name for f in dataclasses.fields(NucleusState))
 
 # The launch counters of the kernels a frame runs: (wrapper, attribute).
 COUNTERS = ((force_step, "launches"), (force_step, "small_launches"),
-            (overlap_step, "launches"))
+            (overlap_step, "launches"), (ejecta_decay_substep, "launches"))
 
 
 def read_counters() -> list[int]:

@@ -4,9 +4,9 @@ In the full-physics frame each substep advances the ejecta, runs the decay
 check, and calls the force + integrate step; the frame ends with one
 overlap projection and the metrics (reference nuclear_sim.py:118-176). The
 decay-statistics frame runs only the decay checks, all of a frame's
-substeps in one kernel call. The force, overlap and decay passes go through
-the kernel wrappers, which take the plain PyTorch version for CPU tensors
-and the CUDA kernel for CUDA tensors.
+substeps in one kernel call. The ejecta and decay of a substep, the force,
+overlap and decay passes go through the kernel wrappers, which take the
+plain PyTorch version for CPU tensors and the CUDA kernel for CUDA tensors.
 
 The frame's scalars are computed in f32 in the JAX package's order
 (:mod:`pyqmd_tpu_torch.core.dynamics`) and reach the ops as 0-d tensors on
@@ -25,11 +25,14 @@ import torch
 
 from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.config import SimConfig
-from pyqmd_tpu_torch.core.decay import maybe_decay, pack_nucleon_bits, unpack_alive_ptype
+from pyqmd_tpu_torch.core.decay import (  # noqa: F401  (advance_ejecta: step's name of it)
+    advance_ejecta,
+    pack_nucleon_bits,
+    unpack_alive_ptype,
+)
 from pyqmd_tpu_torch.core.dynamics import (
     FrameDynamics,
     FrameScalars,
-    as_scalars,
     frame_dynamics,
     frame_scalars,
 )
@@ -38,29 +41,8 @@ from pyqmd_tpu_torch.core.overlap import _rand_u
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
-from pyqmd_tpu_torch.state import ALPHA, NucleusState
-
-
-def advance_ejecta(state: NucleusState, cfg: SimConfig, dyn) -> NucleusState:
-    """Ejecta advection + ageing + expiry (nuclear_sim.py:178-210).
-
-    Animated decay products (alpha/e-/gamma/e+) move at a fixed animation
-    timestep with substep-compensated speed and age with the reference's
-    time-scale-damped rate; emitted nucleons advect with
-    ``dt * sqrt(time_scale)`` and never expire. ``dyn`` is the frame's
-    :class:`FrameScalars` or its :class:`FrameDynamics`.
-    """
-    sc = as_scalars(dyn, cfg, state.ej_pos.device)
-    is_anim = state.ej_type >= ALPHA
-    step = torch.where(is_anim, sc.anim_step, sc.nucleon_step)
-
-    live = state.ej_alive
-    new_pos = state.ej_pos + state.ej_vel * torch.where(live, step, 0.0)[..., None]
-
-    age_inc = torch.where(is_anim, sc.anim_age_inc, sc.step_time)
-    new_age = state.ej_age + torch.where(live, age_inc, 0.0)
-    expired = is_anim & (new_age >= state.ej_life)
-    return state.replace(ej_pos=new_pos, ej_age=new_age, ej_alive=live & ~expired)
+from pyqmd_tpu_torch.kernels.substep import SUBSTEP_FIELDS, ejecta_decay_substep
+from pyqmd_tpu_torch.state import NucleusState
 
 
 # Per-nucleus metric keys produced by state_metrics.
@@ -164,10 +146,15 @@ def frame_body(
     num_steps: int,
     force_step_fn=None,
 ) -> NucleusState:
-    """The full-physics frame without its metrics: clock, key tree,
+    """The full-physics frame without its metrics: clock, key split,
     ``num_steps`` substeps and the overlap projection, every scalar read
     from ``sc``. No op depends on a value of the frame's scalars, so a
-    CUDA graph of it replays at any time scale (:mod:`.graphs`).
+    CUDA graph of it replays at any time scale (:mod:`.graphs`). A
+    substep's ejecta and decay are one
+    :func:`~pyqmd_tpu_torch.kernels.substep.ejecta_decay_substep` call,
+    which takes its key from ``k3 = split(rng, 3)`` and the substep index
+    and, on the card, updates the frame's own copies of the fields it
+    writes in place (cloned once, so the caller's state stays as it was).
 
     ``force_step_fn`` replaces the force + integrate step, with the
     signature of :func:`pyqmd_tpu_torch.kernels.forces.force_step`
@@ -177,10 +164,10 @@ def frame_body(
     wrapper."""
     fstep = force_step_fn or force_step
     states = _advance_clock(states, sc)
-    k3, step_keys = _key_tree(states.rng, num_steps)
+    states = states.replace(**{f: getattr(states, f).clone() for f in SUBSTEP_FIELDS})
+    k3 = prng.split(states.rng, 3)  # (B, 3, 2): substeps, overlap, next
     for s in range(num_steps):
-        states = advance_ejecta(states, cfg, sc)
-        states, _ = maybe_decay(states, cfg, step_keys[s], sc)
+        states = ejecta_decay_substep(states, cfg, sc, k3, s)
         pos, vel = fstep(
             states.pos, states.vel, states.ptype, states.alive, sc.physics_dt, cfg
         )

@@ -97,6 +97,8 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, _PTR,
     ]
     lib.pyqmd_decay_stats_frame.restype = ctypes.c_int
+    lib.pyqmd_ejecta_decay_substep.argtypes = [_PTR, _PTR]
+    lib.pyqmd_ejecta_decay_substep.restype = ctypes.c_int
     lib.pyqmd_error_string.argtypes = [ctypes.c_int]
     lib.pyqmd_error_string.restype = ctypes.c_char_p
     return lib

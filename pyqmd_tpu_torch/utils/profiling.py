@@ -142,9 +142,11 @@ def counters() -> dict:
     from pyqmd_tpu_torch.kernels.decay import decay_stats_frame, decay_stats_substep
     from pyqmd_tpu_torch.kernels.forces import force_step
     from pyqmd_tpu_torch.kernels.overlap import overlap_step
+    from pyqmd_tpu_torch.kernels.substep import ejecta_decay_substep
 
     out = dict(_COUNTS)
-    for wrapper in (force_step, overlap_step, decay_stats_frame, decay_stats_substep):
+    for wrapper in (force_step, overlap_step, decay_stats_frame, decay_stats_substep,
+                    ejecta_decay_substep):
         for attr in ("launches", "small_launches"):
             if hasattr(wrapper, attr):
                 out[f"kernels.{wrapper.__name__}.{attr}"] = getattr(wrapper, attr)

@@ -35,6 +35,7 @@ from pyqmd_tpu_torch.core.init import ensemble_init, init_state  # noqa: E402
 from pyqmd_tpu_torch.core.step import ensemble_step, simulate_frame  # noqa: E402
 from pyqmd_tpu_torch.kernels.forces import force_step  # noqa: E402
 from pyqmd_tpu_torch.kernels.overlap import overlap_step  # noqa: E402
+from pyqmd_tpu_torch.kernels.substep import ejecta_decay_substep  # noqa: E402
 from pyqmd_tpu_torch.parallel import (  # noqa: E402
     DATA_AXIS,
     MODEL_AXIS,
@@ -266,7 +267,8 @@ def factories_and_eager_forms(world, device, batch=8, steps=2):
 
 
 def _launches():
-    return (force_step.launches, force_step.small_launches, overlap_step.launches)
+    return (force_step.launches, force_step.small_launches, overlap_step.launches,
+            ejecta_decay_substep.launches)
 
 
 def factories_against_eager(world, device) -> dict:

@@ -90,6 +90,7 @@ inline unsigned __ballot_sync(unsigned, bool b) {
 }
 
 inline bool __any_sync(unsigned mask, bool b) { return __ballot_sync(mask, b) != 0u; }
+inline void __syncwarp(unsigned = 0xffffffffu) { pq_warp_barrier(); }
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 
 typedef int cudaError_t;

@@ -25,6 +25,7 @@ from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
+from pyqmd_tpu_torch.kernels.substep import SUBSTEP_FIELDS, ejecta_decay_substep
 from pyqmd_tpu_torch.render import render_to_host
 from pyqmd_tpu_torch.state import state_to_numpy
 from pyqmd_tpu_torch.utils import profiling
@@ -315,6 +316,136 @@ def test_decay_frame_wrapper_rejects_what_the_kernel_does_not_take(dev):
         decay_stats_frame(st, (bits[0], bits[1][:8]), rng, cfg, dyn, 10)
     with pytest.raises(ValueError):
         decay_stats_frame(st, bits, rng, cfg, dyn, -1)
+
+
+# --- the full-physics substep kernel (csrc/substep.cu) -----------------------
+
+# The integer fields of a full-physics state, and the floats that only the
+# decay engine and the clock write (the benchmark's ``correct`` holds both
+# exactly against the plain frame on the card).
+SUBSTEP_INTS = ("alive", "ptype", "z", "n", "decay_counts", "chain_z0", "chain_n0",
+                "chain_dtype", "chain_z1", "chain_n1", "chain_cursor", "ej_type", "ej_alive",
+                "ej_cursor", "rng")
+SUBSTEP_CLOCK = ("half_life", "time_passed", "last_decay_time", "chain_time", "ej_age",
+                 "ej_life")
+
+
+def _substep_state(dev, species, p, e, c, ts, seed, short=2 / 3):
+    """A mixed batch on ``dev`` whose ejecta rings are in use (live and dead
+    slots, ages about to pass their lifetimes), random velocities, and a
+    share ``short`` of the members with half-lives of a thousandth of a
+    substep (they decay for certain); the config, state and frame scalars."""
+    from pyqmd_tpu_torch.core.dynamics import frame_dynamics, frame_scalars
+    from pyqmd_tpu_torch.core.init import mixed_ensemble_init
+
+    z, n, _ = species[0]
+    cfg = SimConfig(z=z, n=n, max_particles=p, max_ejecta=e, max_chain_log=c)
+    st = mixed_ensemble_init(cfg, species, seed=seed, device="cpu")
+    sc = frame_scalars(frame_dynamics(cfg, ts, 1 / 60, 20, None, cfg.physics_dt), cfg, dev)
+    g = np.random.default_rng(seed)
+    b = st.batch
+    types = torch.from_numpy(g.integers(0, 6, (b, e)).astype(np.int32))
+    life = torch.from_numpy(g.uniform(0.1, 3.0, (b, e)).astype(np.float32))
+    life[types < 2] = float("inf")
+    age = life * torch.from_numpy(g.uniform(0.5, 1.05, (b, e)).astype(np.float32))
+    hl = st.half_life.clone()
+    hl[torch.from_numpy(g.uniform(size=b) < short)] = float(sc.step_time) * 1e-3
+    st = st.replace(
+        vel=torch.from_numpy(g.normal(0, 2, (b, p, 2)).astype(np.float32)),
+        ej_pos=torch.from_numpy(g.normal(400, 30, (b, e, 2)).astype(np.float32)),
+        ej_vel=torch.from_numpy(g.normal(0, 20, (b, e, 2)).astype(np.float32)),
+        ej_type=types, ej_age=torch.where(types < 2, 0.0, age), ej_life=life,
+        ej_alive=torch.from_numpy(g.uniform(size=(b, e)) < 0.7),
+        ej_cursor=torch.from_numpy(g.integers(0, 5 * e, b).astype(np.int32)),
+        half_life=hl, time_passed=torch.full((b,), 3e9),
+        chain_cursor=torch.from_numpy(g.integers(0, 3 * c, b).astype(np.int32)),
+    )
+    return cfg, st.to(dev), sc
+
+
+@pytest.mark.parametrize("case", ["u238", "mixed_slow", "p8"])
+def test_substep_kernel_matches_plain_on_the_card(dev, case):
+    """The frame's first two substeps, in place on a copy of the state,
+    against ``advance_ejecta`` + ``maybe_decay`` on the card from the same
+    state and key: integers, rng, the decay engine's and clock's floats and
+    every velocity bitwise; fragment positions (a centre of mass summed in
+    another order) within 1e-4; one launch a call."""
+    species, p, e, c, ts = {
+        "u238": ([(92, 146, 1024)], 256, 64, 64, 3.15576e16),
+        "mixed_slow": ([(92, 146, 200), (6, 8, 200), (47, 56, 200), (43, 56, 101)], 256, 40,
+                       5, 0.5),
+        "p8": ([(1, 2, 100), (2, 6, 100), (4, 3, 99)], 8, 20, 4, 3.15576e16),
+    }[case]
+    cfg, st, sc = _substep_state(dev, species, p, e, c, ts, seed=len(case))
+    k3 = prng.split(st.rng, 3)
+    want = st
+    got = st.replace(**{f: getattr(st, f).clone() for f in SUBSTEP_FIELDS})
+    for s in range(2):
+        keys = prng.split(k3[:, 0], 20)[:, s]
+        want = decay.maybe_decay(decay.advance_ejecta(want, cfg, sc), cfg, keys, sc)[0]
+        before = ejecta_decay_substep.launches
+        assert ejecta_decay_substep(got, cfg, sc, k3, s) is got
+        assert ejecta_decay_substep.launches == before + 1
+        for f in SUBSTEP_INTS + SUBSTEP_CLOCK + ("pos", "vel", "ej_vel"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (s, f)
+        torch.testing.assert_close(got.ej_pos, want.ej_pos, rtol=1e-4, atol=1e-4)
+    fired = int((want.chain_cursor != st.chain_cursor).sum())
+    assert fired > st.batch // 2
+    assert not torch.equal(st.ej_alive, want.ej_alive)
+
+
+def test_substep_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cfg, st, sc = _substep_state(dev, [(6, 8, 64)], 16, 8, 4, 3.15576e16, seed=0)
+    k3 = prng.split(st.rng, 3)
+    with pytest.raises(TypeError):
+        ejecta_decay_substep(st, cfg, sc, k3.int(), 0)
+    with pytest.raises(ValueError):
+        ejecta_decay_substep(st, cfg, sc, k3[:, :2], 0)
+    with pytest.raises(ValueError):
+        ejecta_decay_substep(st.replace(ej_pos=st.ej_pos.transpose(0, 1).contiguous()
+                                        .transpose(0, 1)), cfg, sc, k3, 0)
+    with pytest.raises(TypeError):
+        ejecta_decay_substep(st.replace(half_life=st.half_life.double()), cfg, sc, k3, 0)
+    with pytest.raises(ValueError):
+        ejecta_decay_substep(st.replace(half_life=st.half_life.cpu()), cfg, sc, k3, 0)
+
+
+@pytest.mark.parametrize("b", [1024, 1])
+def test_substep_kernel_frames_on_the_card_equal_the_cpu(dev, b):
+    """U-238 frames through ``make_frame_fn`` on the card (the substep
+    kernel in the graph's frame) against the plain frame on the CPU from
+    the same state, a third of the members decaying in the first substep:
+    integers and rng exact, the decay engine's floats within 1e-6, positions
+    and velocities within the benchmark's limits (ensemble 0.5 / 1.5, one
+    nucleus 0.02 / 0.005); 20 substep launches a frame."""
+    from pyqmd_tpu_torch.core import step
+
+    step.make_frame_fn.cache_clear()
+    cfg, st, _ = _substep_state(dev, [(92, 146, b)], 128 * 2, 64, 64 if b > 1 else 256,
+                                3.15576e16, seed=b, short=1 / 3 if b > 1 else 1.0)
+    cfg = SimConfig.for_isotope(92, 146, pad_to=128, max_chain_log=cfg.max_chain_log)
+    fn = step.make_frame_fn(cfg, 20, b > 1)
+    bare = step.ensemble_step if b > 1 else step.simulate_frame
+    frames = 1 if b > 1 else 3
+    got, want = st, st.to("cpu")
+    for _ in range(frames):
+        before = ejecta_decay_substep.launches
+        got, _ = fn(got, 3.15576e16, 1 / 60)
+        assert ejecta_decay_substep.launches == before + 20
+        want, _ = bare(want, cfg, 3.15576e16, 1 / 60, 20, cfg.effective_dt(), cfg.physics_dt)
+    a, c = state_to_numpy(want), state_to_numpy(got)
+    for f in SUBSTEP_INTS:
+        np.testing.assert_array_equal(c[f], a[f], err_msg=f)
+    for f in SUBSTEP_CLOCK:
+        np.testing.assert_allclose(c[f], a[f], rtol=1e-6, atol=0, err_msg=f)
+    pos_lim, vel_lim = (0.5, 1.5) if b > 1 else (0.02, 0.005)
+    for f, lim in (("pos", pos_lim), ("vel", vel_lim)):
+        live = a["alive"][..., None]
+        assert np.abs(np.where(live, c[f] - a[f], 0)).max() <= lim, f
+    for f, lim in (("ej_pos", pos_lim), ("ej_vel", vel_lim)):
+        live = a["ej_alive"][..., None]
+        assert np.abs(np.where(live, c[f] - a[f], 0)).max() <= lim, f
+    assert int((a["chain_cursor"] != state_to_numpy(st)["chain_cursor"]).sum()) >= max(1, b // 4)
 
 
 # --- the host loop, checkpoints, the command line and the rasterizer ----------
@@ -619,13 +750,14 @@ def _assert_graph_frames(res: dict) -> None:
     """The worker's ``graph_frames`` case on the cards: every replay of
     each factory bitwise its bare eager frame, one capture of one bucket,
     the launch counters moved as eager's (the ring's hop replaces the
-    force kernel: overlap only), no synchronising call in a replay."""
+    force kernel: overlap and the substep kernel only), no synchronising
+    call in a replay."""
     for kind, r in res.items():
         assert r["differ"] == [], (kind, r["differ"])
         assert r["captures"] == r["buckets"] == 1, kind
         for got, eager in r["launches"]:
             assert got == eager, (kind, r["launches"])
-        assert r["launches"][-1][1] == [0 if kind != "sharded" else 2, 0, 1], kind
+        assert r["launches"][-1][1] == [0 if kind != "sharded" else 2, 0, 1, 2], kind
 
 
 def test_world_of_one_graph_frames_replay_the_eager_frames(dev, world_of_one):
@@ -767,15 +899,18 @@ def _fresh_factories():
 
 
 def _launches():
-    return (force_step.launches, force_step.small_launches, overlap_step.launches)
+    return (force_step.launches, force_step.small_launches, overlap_step.launches,
+            ejecta_decay_substep.launches)
 
 
 @pytest.mark.parametrize("zn,pad_to,b", GRAPH_CASES)
 def test_graph_frames_replay_the_eager_frames(dev, zn, pad_to, b):
     """Each replay against the bare eager frame, every field and metric
     bitwise: three frames, then a tenth of the time scale and another frame
-    interval (one regime, no second capture); the launch counters move by
-    the eager frame's launches; a replay makes no synchronising call."""
+    interval (one regime, no second capture), then the slow lifetime
+    regime's bucket at two time scales; the launch counters move by the
+    eager frame's launches (one substep kernel a substep); a replay makes
+    no synchronising call."""
     step = _fresh_factories()
     cfg = SimConfig.for_isotope(*zn, pad_to=pad_to)
     batched = b > 1
@@ -801,9 +936,15 @@ def test_graph_frames_replay_the_eager_frames(dev, zn, pad_to, b):
         for k in wm:
             assert torch.equal(gm[k], wm[k]), (i, k)
     assert fn.graphs.captures == 1 and len(fn.graphs.graphs) == 1
-    assert eager[0] == 20 and eager[2] == 1
-    # The other lifetime regime is a bucket of its own.
-    fn(got, 0.5, 1 / 60)
+    assert eager[0] == 20 and eager[2] == 1 and eager[3] == 20
+    # The other lifetime regime is a bucket of its own: its capture, then a
+    # replay at a second time scale, each the eager frame bitwise.
+    for ts in (0.5, 0.25):
+        want, wm = bare(want, cfg, ts, 1 / 60, 20, cfg.effective_dt(), cfg.physics_dt)
+        got, gm = fn(got, ts, 1 / 60)
+        _assert_states_equal(got, want)
+        for k in wm:
+            assert torch.equal(gm[k], wm[k]), (ts, k)
     assert fn.graphs.captures == 2
 
 
@@ -821,7 +962,8 @@ def test_graph_run_is_k_eager_frames(dev, zn, pad_to, b):
     got, _ = run(init, 3.15576e16, 1 / 60)  # the first frame eager, then the capture
     before = _launches()
     got, gm = run(got, 3.15576e16, 1 / 60)
-    assert [a - c for a, c in zip(_launches(), before)] == [60, 60 * (cfg.max_particles <= 32), 3]
+    assert [a - c for a, c in zip(_launches(), before)] == [
+        60, 60 * (cfg.max_particles <= 32), 3, 60]
     _assert_states_equal(got, want)
     for k in wm:
         assert torch.equal(gm[k], wm[k]), k

@@ -435,7 +435,7 @@ def test_frame_factories_are_their_bare_eager_forms(ranks, world, kind):
     for rank, r in enumerate(res):
         assert r["differ"] == []
         assert r["captures"] == r["buckets"] == 0
-        assert r["launches"] == [([0, 0, 0], [0, 0, 0])] * 4
+        assert r["launches"] == [([0, 0, 0, 0], [0, 0, 0, 0])] * 4
         group = list(range(rank - rank % model, rank - rank % model + model))
         assert r["bucket"].endswith(
             "time_scale > 1)" if kind == "sharded" else f", model group of ranks {group} (gloo))"

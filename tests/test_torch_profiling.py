@@ -57,7 +57,8 @@ def test_counters_count_and_report_the_kernel_launches(monkeypatch):
     assert {"host.syncs", "graph.captures", "graph.replays", "sim.chain_drains",
             "kernels.force_step.launches", "kernels.force_step.small_launches",
             "kernels.overlap_step.launches", "kernels.decay_stats_frame.launches",
-            "kernels.decay_stats_substep.launches"} == set(before)
+            "kernels.decay_stats_substep.launches",
+            "kernels.ejecta_decay_substep.launches"} == set(before)
     profiling.count("host.syncs")
     profiling.count("graph.replays", 3)
     monkeypatch.setattr(force_step, "launches", force_step.launches + 5)
