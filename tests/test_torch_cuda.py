@@ -970,6 +970,32 @@ def test_graph_run_is_k_eager_frames(dev, zn, pad_to, b):
     assert run.graphs.captures == 1
 
 
+def test_he4_ensemble_graph_frame_launches_only_the_sub_warp_force_kernel(dev):
+    """One replayed frame of a He-4 ``Simulation(ensemble=64)`` at the
+    billion preset (the benchmark's ``he4.ensemble.b10240`` at a smaller
+    batch): 20 force launches by ``utils.profiling.counters()``, every one
+    of them the sub-warp kernel, none the tiled one; every field and metric
+    bitwise the eager frame from the same state."""
+    step = _fresh_factories()
+    sim = Simulation(z=2, n=2, seed=17, ensemble=64, pad_to=8, device=dev)
+    sim.set_preset("billion")
+    sim.frame()  # the bucket's first call: an eager frame, then the capture
+    state = sim.state
+    before = profiling.counters()
+    metrics = sim.frame()
+    grown = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert grown["graph.replays"] == 1 and grown["graph.captures"] == 0
+    assert grown["kernels.force_step.small_launches"] == 20
+    assert grown["kernels.force_step.launches"] == 20  # of either kernel: none tiled
+    assert sim.substeps_used == 20
+    want, wm = step.ensemble_step(state, sim.cfg, sim.time_scale, 1 / 60, 20,
+                                  sim.cfg.effective_dt(), sim.cfg.physics_dt)
+    _assert_states_equal(sim.state, want)
+    assert set(metrics) == set(wm)
+    for k in wm:
+        assert torch.equal(metrics[k], wm[k]), k
+
+
 def test_graph_replay_spans_and_one_capture_per_bucket(dev):
     """A replayed frame is the spans ``pyqmd.graph.copy_in``, ``replay`` and
     ``copy_out``, the copies' device operations launched inside the copy
