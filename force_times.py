@@ -30,6 +30,7 @@ SIZES = (
     ("He-4", (2, 2), 8, 10_240),
     ("He-4", (2, 2), 8, 1_048_576),
     ("U-238", (92, 146), 128, 10_240),
+    ("U-238", (92, 146), 128, 1_024),
 )
 DT = 1 / 240.0
 
@@ -63,12 +64,15 @@ def main(argv: list[str]) -> int:
         cfg = SimConfig.for_isotope(z, n, pad_to=pad_to)
         st = ensemble_init(cfg, batch, seed=0, device=dev)
         before, small_before = force_step.launches, getattr(force_step, "small_launches", None)
+        paired_before = getattr(force_step, "paired_launches", None)
         ms = device_ms(lambda: force_step(st.pos, st.vel, st.ptype, st.alive, dt, cfg), dev, 20)
         print(json.dumps({"tree": str(tree), "isotope": isotope, "B": batch,
                           "P": cfg.max_particles, "ms_per_call": ms, "dt_by_pointer": by_pointer,
                           "launches": force_step.launches - before,
                           "small_kernel_launches": None if small_before is None
                           else force_step.small_launches - small_before,
+                          "paired_launches": None if paired_before is None
+                          else force_step.paired_launches - paired_before,
                           "card": card}), flush=True)
         del st
         torch.cuda.empty_cache()

@@ -71,7 +71,8 @@ FIELDS = tuple(f.name for f in dataclasses.fields(NucleusState))
 
 # The launch counters of the kernels a frame runs: (wrapper, attribute).
 COUNTERS = ((force_step, "launches"), (force_step, "small_launches"),
-            (overlap_step, "launches"), (ejecta_decay_substep, "launches"))
+            (force_step, "paired_launches"), (overlap_step, "launches"),
+            (ejecta_decay_substep, "launches"))
 
 
 def read_counters() -> list[int]:

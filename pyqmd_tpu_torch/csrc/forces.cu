@@ -10,25 +10,37 @@
 // What bounds it on an H100: operations, not memory. A sweep over a
 // nucleus costs P(P-1)/2 pair terms of ~40 flops and 3-5 transcendentals
 // (sqrt, exp, reciprocals) each, against 37 bytes read and written per
-// slot; the special-function unit sets the least time, and the
-// instruction issue rate (~100 instructions per warp round of 32 pairs)
-// limits this form.
+// slot. The special-function unit sets the least time (six of its ops a
+// pair in the fast form: 12 SM clocks a round of 32 pairs), but the
+// instruction issue rate sets this kernel's pace: a pair term is ~80
+// instructions on its common path, and a round's bookkeeping (the rotated
+// alive masks and the skip vote, the partner's index and proton bit, its
+// position by two shuffles, the negated term back by two more, the
+// selects and the loop) ~25 more.
 //
 // The design evaluates each alive pair once: the pair term is antisymmetric
 // (pq_pair_term), so the partner's share is the exact negation, as in the
 // TPU kernel's block-antisymmetric sweep (forces_pallas.py:317-340). The
-// nucleus is cut into 32-slot tiles and the warps of the block share out
-// the upper triangle of tile pairs (ti <= tj), skipping a pair of tiles
-// when either holds no alive slot. In a tile pair, lane l owns slot
-// ti*32 + l and meets partner tj*32 + ((l + r) & 31) in round r; the
-// partner's position comes by __shfl_sync from the lane that holds it, and
-// the negated term goes by a second shuffle to the lane that owns the
-// partner. Off the diagonal that is 32 rounds; on it rounds 1..16, with
-// only lanes 0-15 acting in round 16, cover each pair once. A round that
-// holds no alive pair (a warp vote on the alive bits) is skipped, which
-// also makes a nucleus of a few nucleons cost a few rounds.
+// nucleus is cut into 32-slot tiles, and the warps of the block run a job
+// list made on the host from the tile count (pair_tiles.cuh:
+// pq_force_launch) and passed by value among the kernel's parameters. A
+// job meets one partner tile tj with the two row tiles ta, ta + 1 below
+// it, with one row tile, or with itself (the diagonal). Lane l holds slot
+// l of each row tile and meets partner slot (l + r) & 31 in round r: the
+// partner's position comes by __shfl_sync once for both rows, the two pair
+// terms are independent, and their negated sum goes back by one pair of
+// shuffles to the lane that owns the partner. So two rows share one
+// round's bookkeeping: ~185 instructions a round of two rows against ~104
+// for one (sm_90a SASS), 15% off a launch at U-238 B=10240. Off the
+// diagonal a job is 32 rounds; on it rounds 1..16, with only lanes 0-15
+// acting in round 16, cover each pair once. A round that holds no alive
+// pair (a warp vote on the alive bits) is skipped, and so is a job whose
+// tiles hold none. The jobs are dealt by cost so that no warp carries more
+// than the mean plus one job (at T=8 the slowest warp carries 3% more than
+// the mean, against 12% with tile pairs dealt round robin); dealing them
+// otherwise moved a launch by under 0.2%.
 //
-// The sums are deterministic: each warp adds its tiles' terms into a
+// The sums are deterministic: each warp adds its jobs' terms into a
 // buffer of its own in shared memory (every slot of it written by one
 // lane, in program order), and each slot's force is then the sum of the
 // warps' buffers in warp order. No float atomics: the same input gives the
@@ -45,6 +57,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 #include "block_reduce.cuh"
 #include "pair_math.cuh"
@@ -65,80 +79,136 @@ __device__ void block_com(const float4* s, int P, float safe_count, float* red, 
   *cy = pq_block_sum(sy, red) / safe_count;
 }
 
-// The pair terms of one tile pair (ti <= tj, kDiag = ti == tj) for the
-// calling warp: lane l returns the sum over its partners of slot
-// ti*32 + l's terms in *ax/*ay and of slot tj*32 + l's in *bx/*by (on the
-// diagonal both are the same slot; the caller adds them).
-template <bool kFast, bool kDiag>
-__device__ void tile_pair(const float4* s, uint32_t alive_i, uint32_t alive_j,
-                          uint32_t prot_i, uint32_t prot_j, int ti, int tj,
-                          const PqForceParams& c, float* ax, float* ay, float* bx, float* by) {
+// The rounds of one job for the calling warp. Lane l holds slot l of each
+// of its kRows row tiles (position row[k], proton bit pi[k], the tile's
+// alive bits alive_i[k]) and meets partner slot l + r (mod 32) of the
+// partner tile (part: lane l's own partner slot) in round r: the partner's
+// position comes once by __shfl_sync for all rows, each row's term is added
+// to acc[k], and the rows' negated terms, summed, go back by one shuffle
+// pair to the lane that owns the partner, which returns its sum in *jx/*jy.
+// On the diagonal (kDiag, one row, the partner tile itself) rounds 1..16.
+template <bool kFast, bool kDiag, int kRows>
+__device__ __forceinline__ void job_rounds(const float4& part, const float4 (&row)[2],
+                                           const int32_t (&pi)[2],
+                                           const uint32_t (&alive_i)[2], uint32_t alive_j,
+                                           uint32_t prot_j, const PqForceParams& c,
+                                           float2 (&acc)[2], float* jx, float* jy) {
   const int lane = threadIdx.x & 31;
-  const float4 mine = s[ti * 32 + lane];
-  const float4 part = s[tj * 32 + lane];
-  const int32_t pi = (prot_i >> lane) & 1u;
-  float aix = 0.0f, aiy = 0.0f, ajx = 0.0f, ajy = 0.0f;
+  float sx = 0.0f, sy = 0.0f;
   for (int r = pq_first_round(kDiag); r < pq_end_round(kDiag); ++r) {
-    const uint32_t pairs = pq_round_pairs(alive_i, alive_j, r, kDiag);
-    if (pairs == 0u) continue;  // warp-uniform
+    uint32_t pairs[kRows];
+    uint32_t any = 0u;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      pairs[k] = pq_round_pairs(alive_i[k], alive_j, r, kDiag);
+      any |= pairs[k];
+    }
+    if (any == 0u) continue;  // warp-uniform
     const int src = (lane + r) & 31;
     const float xj = __shfl_sync(0xffffffffu, part.x, src);
     const float yj = __shfl_sync(0xffffffffu, part.y, src);
     const int32_t pj = (prot_j >> src) & 1u;
-    float gx, gy;
-    pq_pair_term(xj - mine.x, yj - mine.y, pi & pj, pi == pj, c, kFast, &gx, &gy);
-    const bool act = (pairs >> lane) & 1u;
-    gx = act ? gx : 0.0f;
-    gy = act ? gy : 0.0f;
-    aix += gx;
-    aiy += gy;
-    // Lane m owns partner slot tj*32 + m, whose term lane (m - r) computed.
+    float tx = 0.0f, ty = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      float gx, gy;
+      pq_pair_term(xj - row[k].x, yj - row[k].y, pi[k] & pj, pi[k] == pj, c, kFast, &gx, &gy);
+      const bool act = (pairs[k] >> lane) & 1u;
+      gx = act ? gx : 0.0f;
+      gy = act ? gy : 0.0f;
+      acc[k].x += gx;
+      acc[k].y += gy;
+      tx = k == 0 ? gx : tx + gx;
+      ty = k == 0 ? gy : ty + gy;
+    }
+    // Lane m owns partner slot m, whose terms lane (m - r) computed.
     const int from = (lane - r) & 31;
-    ajx -= __shfl_sync(0xffffffffu, gx, from);
-    ajy -= __shfl_sync(0xffffffffu, gy, from);
+    sx -= __shfl_sync(0xffffffffu, tx, from);
+    sy -= __shfl_sync(0xffffffffu, ty, from);
   }
-  *ax = aix;
-  *ay = aiy;
-  *bx = ajx;
-  *by = ajy;
+  *jx = sx;
+  *jy = sy;
 }
 
-// One sweep: every warp adds its share of the tile pairs' terms into its
-// own buffer (zeroed by the caller). The caller synchronises after.
+// Adds the sums of the rows of job `code`, held in registers, to the
+// warp's buffer. (Constant indices keep the arrays in registers.)
+__device__ __forceinline__ void add_rows(float2* mine, int code, const float2 (&acc)[2]) {
+  const int lane = threadIdx.x & 31;
+  float2& a = mine[pq_job_row(code) * 32 + lane];
+  a.x += acc[0].x;
+  a.y += acc[0].y;
+  if (pq_job_rows(code) == 2) {
+    float2& b = mine[(pq_job_row(code) + 1) * 32 + lane];
+    b.x += acc[1].x;
+    b.y += acc[1].y;
+  }
+}
+
+// One sweep: every warp runs its jobs (pair_tiles.cuh:pq_force_launch) and
+// adds their terms into its own buffer (zeroed by the caller); each slot of
+// it is written by one lane, in program order. A paired or single job's
+// rows stay in registers, their sums with them, for as long as the warp's
+// next job has the same rows, and are added to the buffer once. A job
+// whose tiles hold no alive slot is skipped. The caller synchronises after.
 template <bool kFast>
 __device__ void pair_sweep(const float4* s, const uint32_t* alive_bits,
                            const uint32_t* prot_bits, int T, float2* buf,
-                           const PqForceParams& c) {
+                           const PqForceJobs& jobs, const PqForceParams& c) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
   float2* mine = buf + (size_t)warp * T * 32;
-  int k = 0;
-  for (int ti = 0; ti < T; ++ti) {
-    for (int tj = ti; tj < T; ++tj, ++k) {
-      if (k % warps != warp) continue;
-      if (alive_bits[ti] == 0u || alive_bits[tj] == 0u) continue;
-      float ax, ay, bx, by;
-      if (ti == tj) {
-        tile_pair<kFast, true>(s, alive_bits[ti], alive_bits[tj], prot_bits[ti], prot_bits[tj],
-                               ti, tj, c, &ax, &ay, &bx, &by);
-      } else {
-        tile_pair<kFast, false>(s, alive_bits[ti], alive_bits[tj], prot_bits[ti],
-                                prot_bits[tj], ti, tj, c, &ax, &ay, &bx, &by);
-      }
-      float2& fi = mine[ti * 32 + lane];
-      if (ti == tj) {
-        fi.x += ax + bx;
-        fi.y += ay + by;
-      } else {
-        fi.x += ax;
-        fi.y += ay;
-        float2& fj = mine[tj * 32 + lane];
-        fj.x += bx;
-        fj.y += by;
-      }
+  int held = -1;  // the job whose rows are in registers, or -1
+  float4 row[2];
+  int32_t pi[2];
+  uint32_t alive_i[2];
+  float2 acc[2];
+  for (int k = jobs.first[warp]; k < jobs.first[warp + 1]; ++k) {
+    const int code = jobs.job[k];
+    if (held >= 0 && !pq_job_same_rows(code, held)) {
+      add_rows(mine, held, acc);
+      held = -1;
     }
+    const int tj = pq_job_partner(code);
+    const uint32_t alive_j = alive_bits[tj];
+    const float4 part = s[tj * 32 + lane];
+    float jx, jy;
+    if (pq_job_kind(code) == kPqJobDiag) {
+      if (alive_j == 0u) continue;
+      const float4 self[2] = {part, part};
+      const int32_t ps[2] = {(int32_t)((prot_bits[tj] >> lane) & 1u), 0};
+      const uint32_t as[2] = {alive_j, 0u};
+      float2 own[2] = {make_float2(0.0f, 0.0f), make_float2(0.0f, 0.0f)};
+      job_rounds<kFast, true, 1>(part, self, ps, as, alive_j, prot_bits[tj], c, own, &jx, &jy);
+      float2& f = mine[tj * 32 + lane];
+      f.x += own[0].x + jx;
+      f.y += own[0].y + jy;
+      continue;
+    }
+    const int rows = pq_job_rows(code);
+    if (held < 0) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int t = pq_job_row(code) + (q < rows ? q : 0);
+        row[q] = s[t * 32 + lane];
+        pi[q] = (prot_bits[t] >> lane) & 1u;
+        alive_i[q] = q < rows ? alive_bits[t] : 0u;
+        acc[q] = make_float2(0.0f, 0.0f);
+      }
+      held = code;
+    }
+    if (alive_j == 0u || (alive_i[0] | alive_i[1]) == 0u) continue;
+    if (rows == 2) {
+      job_rounds<kFast, false, 2>(part, row, pi, alive_i, alive_j, prot_bits[tj], c, acc, &jx,
+                                  &jy);
+    } else {
+      job_rounds<kFast, false, 1>(part, row, pi, alive_i, alive_j, prot_bits[tj], c, acc, &jx,
+                                  &jy);
+    }
+    float2& f = mine[tj * 32 + lane];
+    f.x += jx;
+    f.y += jy;
   }
+  if (held >= 0) add_rows(mine, held, acc);
 }
 
 // Total force on alive slot i: the warps' buffers summed in warp order,
@@ -160,16 +230,19 @@ __device__ float2 slot_force(int i, const float4& si, float2* buf, int T, int wa
   return make_float2(fx + scale * cdx, fy + scale * cdy);
 }
 
-// The fast kernel asks for five blocks per SM (at most 51 registers): with
-// dt read from device memory nvcc gave it 54 registers, four blocks per SM
-// and 2-4% more time at U-238 B=10240; with the bound it uses 48, as it did
-// with dt passed by value.
+// The fast kernel asks for four blocks of 8 warps per SM (at most 64
+// registers): its two-row rounds then use 64 registers with no spills. At
+// five blocks ptxas keeps 48 registers and spills 32 bytes, for under 1%
+// less time at U-238 B=10240; at three (72-80 registers) a launch takes 8%
+// longer, so more rows a lane, which would need more registers, are not
+// worth their occupancy.
 template <bool kFast>
-__global__ void __launch_bounds__(kPqMaxWarps * 32, kFast ? 5 : 1)
+__global__ void __launch_bounds__(kPqMaxWarps * 32, kFast ? 4 : 1)
 force_step_kernel(const float2* __restrict__ pos, const float2* __restrict__ vel,
                   const int32_t* __restrict__ ptype, const uint8_t* __restrict__ alive,
                   float2* __restrict__ out_pos, float2* __restrict__ out_vel, int P,
-                  const float* __restrict__ dt_ptr, PqForceParams c) {
+                  const float* __restrict__ dt_ptr, PqForceParams c,
+                  const __grid_constant__ PqForceJobs jobs) {
   const int T = (P + 31) / 32;
   const int warps = blockDim.x >> 5;
   extern __shared__ float4 smem[];
@@ -208,7 +281,7 @@ force_step_kernel(const float2* __restrict__ pos, const float2* __restrict__ vel
   float cx, cy;
   block_com(s, P, safe, red, &cx, &cy);
 
-  pair_sweep<kFast>(s, alive_bits, prot_bits, T, buf, c);
+  pair_sweep<kFast>(s, alive_bits, prot_bits, T, buf, jobs, c);
   __syncthreads();
   const float dt = *dt_ptr;
 
@@ -252,7 +325,7 @@ force_step_kernel(const float2* __restrict__ pos, const float2* __restrict__ vel
   }
   // block_com synchronises before the sweep reads the drifted slots.
   block_com(s, P, safe, red, &cx, &cy);
-  pair_sweep<kFast>(s, alive_bits, prot_bits, T, buf, c);
+  pair_sweep<kFast>(s, alive_bits, prot_bits, T, buf, jobs, c);
   __syncthreads();
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     const float4 si = s[i];
@@ -263,6 +336,21 @@ force_step_kernel(const float2* __restrict__ pos, const float2* __restrict__ vel
                                     (vh.y + f.y * half_dt) * c.damping);
     out_pos[base + i] = make_float2(si.x, si.y);
   }
+}
+
+// The launch shape and job list of every tile count, made once.
+struct ForceSchedule {
+  PqForceLaunch launch;
+  PqForceJobs jobs;
+};
+
+const ForceSchedule& force_schedule(int P) {
+  static const std::vector<ForceSchedule> all = [] {
+    std::vector<ForceSchedule> v(kPqMaxTiles + 1);
+    for (int t = 1; t <= kPqMaxTiles; ++t) v[t].launch = pq_force_launch(32 * t, &v[t].jobs);
+    return v;
+  }();
+  return all[(P + 31) / 32];
 }
 
 }  // namespace
@@ -281,14 +369,26 @@ int pyqmd_force_step(const void* pos, const void* vel, const void* ptype, const 
                      const PqForceParams* params, void* stream) {
   static int opted[2][kPqMaxDevices];
   if (B == 0 || P == 0) return 0;
-  const PqTileLaunch l = pq_tile_launch(P, sizeof(float4));
+  const ForceSchedule& f = force_schedule(P);
   const auto kernel = params->fast_math ? force_step_kernel<true> : force_step_kernel<false>;
-  const cudaError_t err = pq_opt_in_smem(kernel, l.smem, opted[params->fast_math ? 1 : 0]);
+  const cudaError_t err = pq_opt_in_smem(kernel, f.launch.smem, opted[params->fast_math ? 1 : 0]);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, l.warps * 32, l.smem, (cudaStream_t)stream>>>(
+  kernel<<<B, f.launch.warps * 32, f.launch.smem, (cudaStream_t)stream>>>(
       (const float2*)pos, (const float2*)vel, (const int32_t*)ptype, (const uint8_t*)alive,
-      (float2*)out_pos, (float2*)out_vel, P, (const float*)dt, *params);
+      (float2*)out_pos, (float2*)out_vel, P, (const float*)dt, *params, f.jobs);
   return (int)cudaGetLastError();
+}
+
+// The force kernel's schedule at capacity P (pair_tiles.cuh:pq_force_launch):
+// its jobs, the paired ones among them, and its warps a block. Returns
+// cudaErrorInvalidValue for a P the kernel does not take.
+int pyqmd_force_schedule(int P, int* jobs, int* paired, int* warps) {
+  if (P < 1 || P > 32 * kPqMaxTiles) return (int)cudaErrorInvalidValue;
+  const PqForceLaunch& l = force_schedule(P).launch;
+  *jobs = l.jobs;
+  *paired = l.paired;
+  *warps = l.warps;
+  return 0;
 }
 
 }  // extern "C"

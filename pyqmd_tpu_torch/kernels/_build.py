@@ -85,6 +85,8 @@ def library() -> ctypes.CDLL:
     lib.pyqmd_force_step.restype = ctypes.c_int
     lib.pyqmd_force_step_small.argtypes = lib.pyqmd_force_step.argtypes
     lib.pyqmd_force_step_small.restype = ctypes.c_int
+    lib.pyqmd_force_schedule.argtypes = [ctypes.c_int] + [_PTR] * 3
+    lib.pyqmd_force_schedule.restype = ctypes.c_int
     lib.pyqmd_overlap_step.argtypes = [_PTR] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float, _PTR,
     ]

@@ -14,6 +14,7 @@ other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -109,9 +110,26 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig):
     _build.raise_on_error(err, "small force" if small else "force")
     force_step.launches += 1
     force_step.small_launches += int(small)
+    force_step.paired_launches += int(not small and schedule(p)[1] > 0)
     return out_pos, out_vel
 
 
-# Launches of either kernel, and of the small-nucleus kernel among them.
+@functools.cache
+def schedule(p: int) -> tuple[int, int, int]:
+    """The tiled kernel's schedule at capacity ``p`` as the library makes
+    it (``csrc/pair_tiles.cuh:pq_force_launch``): (jobs, paired jobs,
+    warps a block). Paired jobs, two rows a lane against one partner,
+    exist from 65 slots (three tiles) on."""
+    jobs, paired, warps = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _build.library().pyqmd_force_schedule(p, ctypes.byref(jobs), ctypes.byref(paired),
+                                                ctypes.byref(warps))
+    if err:
+        raise ValueError(f"the force kernel takes no P={p}")
+    return jobs.value, paired.value, warps.value
+
+
+# Launches of either kernel, of the small-nucleus kernel among them, and of
+# the tiled kernel with a job list that holds a paired job.
 force_step.launches = 0
 force_step.small_launches = 0
+force_step.paired_launches = 0

@@ -147,7 +147,7 @@ def counters() -> dict:
     out = dict(_COUNTS)
     for wrapper in (force_step, overlap_step, decay_stats_frame, decay_stats_substep,
                     ejecta_decay_substep):
-        for attr in ("launches", "small_launches"):
+        for attr in ("launches", "small_launches", "paired_launches"):
             if hasattr(wrapper, attr):
                 out[f"kernels.{wrapper.__name__}.{attr}"] = getattr(wrapper, attr)
     return out

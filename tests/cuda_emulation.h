@@ -22,6 +22,7 @@
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __restrict__
 #define __shared__ static
 

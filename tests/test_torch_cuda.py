@@ -53,18 +53,25 @@ def _batch(dev, b, p, spread, seed):
 
 
 # P=600: 48,640 bytes of dynamic shared memory, under 48 KB only without the
-# kernel's static arrays.
-@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (600, 3), (2000, 2)])
+# kernel's static arrays. U-238's shape: the first 238 of 256 slots alive,
+# so the last tile holds 14; P=160: five tiles, single-row jobs beside
+# paired ones. From P=65 (three tiles) on the job list holds paired jobs.
+@pytest.mark.parametrize("p,b,alive_first", [(256, 16, None), (256, 16, 238), (160, 11, None),
+                                             (100, 9, None), (8, 70, None), (33, 21, None),
+                                             (600, 3, None), (2000, 2, None)])
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
-def test_force_kernel_matches_plain(dev, p, b, integrator):
+def test_force_kernel_matches_plain(dev, p, b, alive_first, integrator):
     base = SimConfig.for_isotope(2, 2, pad_to=p, integrator=integrator)
     pos, vel, ptype, alive, _ = _batch(dev, b, p, 40.0 if p > 8 else 12.0, seed=p + b)
+    if alive_first is not None:
+        alive = (torch.arange(p, device=dev) < alive_first).expand(b, p).contiguous()
     exact = dataclasses.replace(base, fast_math=False)
     ref = forces.force_step(pos, vel, ptype, alive, DT, exact)
-    before = force_step.launches
+    before, paired_before = force_step.launches, force_step.paired_launches
     got = force_step(pos, vel, ptype, alive, DT, exact)
     fast = force_step(pos, vel, ptype, alive, DT, base)
     assert force_step.launches == before + 2
+    assert force_step.paired_launches == paired_before + 2 * (p >= 65)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
     for g, r in zip(fast, ref):
@@ -151,9 +158,10 @@ def test_kernels_take_edge_nuclei(dev, case, integrator):
     assert torch.equal(got[~alive], pos[~alive])
 
 
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
 @pytest.mark.parametrize("fast_math", [False, True])
-def test_kernels_give_the_same_bits_on_every_launch(dev, fast_math):
-    cfg = SimConfig.for_isotope(92, 146, pad_to=128, fast_math=fast_math)
+def test_kernels_give_the_same_bits_on_every_launch(dev, fast_math, integrator):
+    cfg = SimConfig.for_isotope(92, 146, pad_to=128, fast_math=fast_math, integrator=integrator)
     pos, vel, ptype, alive, u = _batch(dev, 64, 256, 40.0, seed=11)
     first = force_step(pos, vel, ptype, alive, DT, cfg)
     for _ in range(3):

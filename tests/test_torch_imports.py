@@ -45,7 +45,7 @@ _PROBE = textwrap.dedent(
     assert analysis.half_life_host(6, 8) > 0 and states.z.shape == (4,)
     assert force_step.launches == 0 and overlap_step.launches == 0
     assert decay_stats_substep.launches == 0 and decay_stats_frame.launches == 0
-    assert force_step.small_launches == 0
+    assert force_step.small_launches == 0 and force_step.paired_launches == 0
     assert _build.library.cache_info().currsize == 0
 
     # The compiled frame buckets: on CPU tensors the factories run eagerly,

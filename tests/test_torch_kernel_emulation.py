@@ -45,6 +45,8 @@ CASES = {
     "p100_dead_tile": (100, 2, 30.0, 0.8),
     "one_alive_and_none": (40, 2, 30.0, 0.0),
     "dense": (64, 2, 4.0, 0.5),
+    "u238": (256, 2, 40.0, 1.0),  # the first 238 slots alive: the last tile holds 14
+    "p160_odd_tiles": (160, 2, 30.0, 0.9),  # T=5: single-row jobs beside paired ones
 }
 # The small-nucleus kernel's cases (P <= 32), same layout; member 1 has no
 # alive slot, and B * next_pow2(P) is not a multiple of 32 except at P=20, 32.
@@ -87,6 +89,7 @@ def lib(tmp_path_factory):
     ptr = ctypes.c_void_p
     lib.pyqmd_force_step.argtypes = [ptr] * 6 + [ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
     lib.pyqmd_force_step_small.argtypes = lib.pyqmd_force_step.argtypes
+    lib.pyqmd_force_schedule.argtypes = [ctypes.c_int] + [ptr] * 3
     lib.pyqmd_overlap_step.argtypes = [ptr] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                                    ctypes.c_float, ctypes.c_float, ptr]
     return lib
@@ -107,6 +110,8 @@ def _batch(name):
     if name == "dense":
         pos[:, :3] = 400.0  # a coincident triple
         alive[:, :3] = True
+    if name == "u238":
+        alive[:, 238:] = False
     if name in SMALL_CASES:
         alive[1] = False
     return [torch.from_numpy(a) for a in (pos, vel, ptype, alive, u)]
@@ -166,6 +171,24 @@ def test_small_force_kernel_source_matches_plain(lib, name, integrator, fast_mat
     again = _force(lib, pos, vel, ptype, alive, cfg, "pyqmd_force_step_small")
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
     assert not torch.equal(got[1][alive], vel[alive])
+
+
+def test_force_schedule_entry_reports_the_launch(lib):
+    """``pyqmd_force_schedule``, which ``kernels.forces.schedule`` reads for
+    the paired-launch counter: (jobs, paired jobs, warps) of the tiled
+    kernel's launch at P, and an error for a P it does not take."""
+    out = [ctypes.c_int() for _ in range(3)]
+
+    def schedule(p):
+        err = lib.pyqmd_force_schedule(p, *map(ctypes.byref, out))
+        return err, tuple(v.value for v in out)
+
+    assert schedule(33) == (0, (3, 0, 3))  # two diagonal jobs and a single-row one
+    assert schedule(64)[1][1] == 0 and schedule(65)[1][1] == 1
+    assert schedule(160) == (0, (11, 4, 8))
+    assert schedule(256) == (0, (24, 12, 8))
+    assert schedule(2000) == (0, (63 + 63 * 63 // 4, 31 * 31, 8))
+    assert schedule(0)[0] != 0 and schedule(2049)[0] != 0
 
 
 def test_small_force_kernel_refuses_larger_nuclei(lib):

@@ -89,6 +89,47 @@ void shim_tile_launch(int P, int slot_bytes, int* warps, long* smem) {
   *warps = l.warps;
   *smem = (long)l.smem;
 }
+
+// The force kernel's launch shape and job list: counts in out[0..3]
+// (warps, jobs, paired, smem), first[] and job[] as the kernel takes them.
+void shim_force_launch(int P, long* out, unsigned short* first, unsigned short* job) {
+  PqForceJobs j;
+  const PqForceLaunch l = pq_force_launch(P, &j);
+  out[0] = l.warps;
+  out[1] = l.jobs;
+  out[2] = l.paired;
+  out[3] = (long)l.smem;
+  for (int w = 0; w <= kPqMaxWarps; ++w) first[w] = j.first[w];
+  for (int k = 0; k < l.jobs; ++k) job[k] = j.job[k];
+}
+int shim_job_cost(int code) { return pq_job_cost(code); }
+int shim_max_force_jobs(void) { return kPqMaxForceJobs; }
+
+// The pairs of slots that the force kernel's sweep meets at capacity P,
+// walked job by job and row by row as forces.cu walks them, for the
+// tiles' alive bits: met[i * 32T + j] counts pair (i, j), i < j.
+void shim_force_pairs_met(int P, const unsigned* alive, unsigned char* met) {
+  PqForceJobs j;
+  const PqForceLaunch l = pq_force_launch(P, &j);
+  const int n = (P + 31) / 32 * 32;
+  for (int w = 0; w < l.warps; ++w) {
+    for (int k = j.first[w]; k < j.first[w + 1]; ++k) {
+      const int code = j.job[k], tj = pq_job_partner(code);
+      const bool diag = pq_job_kind(code) == kPqJobDiag;
+      for (int q = 0; q < pq_job_rows(code); ++q) {
+        const int ti = pq_job_row(code) + q;
+        for (int r = pq_first_round(diag); r < pq_end_round(diag); ++r) {
+          const unsigned bits = pq_round_pairs(alive[ti], alive[tj], r, diag);
+          for (int lane = 0; lane < 32; ++lane) {
+            if (!(bits >> lane & 1u)) continue;
+            const int a = ti * 32 + lane, b = tj * 32 + ((lane + r) & 31);
+            ++met[(a < b ? a : b) * n + (a < b ? b : a)];
+          }
+        }
+      }
+    }
+  }
+}
 }
 """
 
@@ -110,6 +151,7 @@ def shim(tmp_path_factory):
     lib.shim_round_pairs.restype = ctypes.c_uint
     lib.shim_sub_round_pairs.restype = ctypes.c_uint
     lib.shim_max_smem.restype = ctypes.c_long
+    lib.shim_force_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     return lib
 
 
@@ -274,3 +316,51 @@ def test_tile_launch_fits_shared_memory(shim):
         assert smem.value == t * 32 * (16 + 8 * warps.value) <= max_smem, p
     shim.shim_tile_launch(256, 16, ctypes.byref(warps), ctypes.byref(smem))
     assert (warps.value, smem.value) == (8, 20480)
+
+
+def _force_schedule(shim, p):
+    """(warps, jobs, paired, smem), then each warp's job codes."""
+    out = np.zeros(4, np.int64)
+    first = np.zeros(shim.shim_max_warps() + 1, np.uint16)
+    job = np.zeros(shim.shim_max_force_jobs(), np.uint16)
+    shim.shim_force_launch(p, _ptr(out), _ptr(first), _ptr(job))
+    warps = int(out[0])
+    return tuple(int(v) for v in out), [job[first[w]:first[w + 1]].tolist() for w in range(warps)]
+
+
+@pytest.mark.parametrize("t", range(2, 65))
+def test_force_job_list_meets_every_alive_pair_once(shim, t):
+    """The force kernel's job list at T tiles, for the warps its launch
+    takes: every tile pair (ti <= tj) in exactly one job, two-row jobs from
+    T = 3 on, no warp's cost above the mean plus one job, and its rounds,
+    walked as the kernel walks them, meet every pair of alive slots once:
+    all slots alive, a ragged last tile, random alive slots beside whole
+    dead tiles."""
+    (warps, jobs, paired, smem), per_warp = _force_schedule(shim, 32 * t)
+    assert warps == min(shim.shim_max_warps(), jobs) and smem <= shim.shim_max_smem()
+    assert jobs == t + t * t // 4 and sum(map(len, per_warp)) == jobs
+    assert (paired > 0) == (t >= 3)
+    met = {}
+    for code in (c for codes in per_warp for c in codes):
+        kind, ta, tj = code >> 12, (code >> 6) & 63, code & 63
+        rows = [tj] if kind == 2 else [ta, ta + 1] if kind == 0 else [ta]
+        assert kind in (0, 1, 2) and (kind == 2 or all(r < tj for r in rows))
+        for r in rows:
+            met[r, tj] = met.get((r, tj), 0) + 1
+    assert met == {(a, b): 1 for b in range(t) for a in range(b + 1)}
+    assert sum(1 for codes in per_warp for c in codes if c >> 12 == 0) == paired
+    costs = [sum(shim.shim_job_cost(c) for c in codes) for codes in per_warp]
+    biggest = max(shim.shim_job_cost(c) for codes in per_warp for c in codes)
+    assert max(costs) <= sum(costs) / warps + biggest, costs
+
+    rng = np.random.default_rng(t)
+    n = 32 * t
+    ragged = np.arange(n) < n - 18
+    scattered = rng.uniform(size=n) < 0.8
+    scattered.reshape(t, 32)[rng.choice(t, max(1, t // 4), replace=False)] = False
+    for alive in (np.ones(n, bool), ragged, scattered):
+        p = n - 18 if alive is ragged else n
+        bits = np.packbits(alive.reshape(t, 32), axis=1, bitorder="little").view(np.uint32)
+        counts = np.zeros((n, n), np.uint8)
+        shim.shim_force_pairs_met(p, _ptr(np.ascontiguousarray(bits[:, 0])), _ptr(counts))
+        np.testing.assert_array_equal(counts, np.triu(np.outer(alive, alive), 1))

@@ -56,6 +56,7 @@ def test_counters_count_and_report_the_kernel_launches(monkeypatch):
     before = profiling.counters()
     assert {"host.syncs", "graph.captures", "graph.replays", "sim.chain_drains",
             "kernels.force_step.launches", "kernels.force_step.small_launches",
+            "kernels.force_step.paired_launches",
             "kernels.overlap_step.launches", "kernels.decay_stats_frame.launches",
             "kernels.decay_stats_substep.launches",
             "kernels.ejecta_decay_substep.launches"} == set(before)
