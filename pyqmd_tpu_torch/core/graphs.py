@@ -16,11 +16,11 @@ and the ``time_scale > 1`` regime of the ejecta lifetime) is captured once
 and replayed:
 
 * The first call of a bucket runs its first frame eagerly on a side
-  stream (the warm-up: it builds the kernel library, copies the constant
-  tables to the device, opts the kernels into their shared memory and
-  runs every collective of the frame, so that NCCL has made its
-  communicators, and the capture makes no such call) and returns that
-  frame's result; then
+  stream (the warm-up: its kernel wrappers build the kernel library and
+  opt the kernels into their shared memory, it copies the constant tables
+  to the device and runs every collective of the frame, so that NCCL has
+  made its communicators, and the capture makes no such call) and returns
+  that frame's result; then
   it captures the frame with :func:`torch.cuda.graph`. Its launches count
   as launches; the capture's do not.
 * Later calls write the frame's scalars into the graph's scalar vector
@@ -34,11 +34,13 @@ and replayed:
   once. It is no graph of k frames, whose instantiation time would grow
   with k.
 
-Each replay adds the launches it holds to the kernels' counters, so they
-still count launches on the card, and counts in ``graph.replays``; a
-capture counts in ``graph.captures``. The host's parts of a call are the
-spans ``pyqmd.graph.warm_up``, ``capture``, ``copy_in``, ``replay`` and
-``copy_out`` (:mod:`pyqmd_tpu_torch.utils.profiling`), all outside the
+A capture puts the kernels' counters of
+:mod:`pyqmd_tpu_torch.utils.profiling` (the ``kernels.*`` names) back as
+they were before it and keeps what its body launched; each replay counts
+that again, so they still count launches on the card, and counts in
+``graph.replays``; a capture counts in ``graph.captures``. The
+host's parts of a call are the spans ``pyqmd.graph.warm_up``,
+``capture``, ``copy_in``, ``replay`` and ``copy_out``, all outside the
 captured body. A failed capture or replay raises and names the bucket;
 nothing retries eagerly or on the CPU.
 """
@@ -60,28 +62,10 @@ from pyqmd_tpu_torch.core.dynamics import (
     scalar_values,
     scalars_to_device,
 )
-from pyqmd_tpu_torch.kernels import _build
-from pyqmd_tpu_torch.kernels.forces import force_step
-from pyqmd_tpu_torch.kernels.overlap import overlap_step
-from pyqmd_tpu_torch.kernels.substep import ejecta_decay_substep
 from pyqmd_tpu_torch.state import NucleusState
-from pyqmd_tpu_torch.utils.profiling import annotate, count
+from pyqmd_tpu_torch.utils.profiling import annotate, count, counters, restore_counters
 
 FIELDS = tuple(f.name for f in dataclasses.fields(NucleusState))
-
-# The launch counters of the kernels a frame runs: (wrapper, attribute).
-COUNTERS = ((force_step, "launches"), (force_step, "small_launches"),
-            (force_step, "paired_launches"), (overlap_step, "launches"),
-            (ejecta_decay_substep, "launches"))
-
-
-def read_counters() -> list[int]:
-    return [getattr(obj, name) for obj, name in COUNTERS]
-
-
-def _set_counters(values: list[int]) -> None:
-    for (obj, name), v in zip(COUNTERS, values):
-        setattr(obj, name, v)
 
 
 class _Device:
@@ -131,7 +115,8 @@ def _record(fn, dev: _Device) -> torch.cuda.CUDAGraph:
 class Graph:
     """One captured bucket: its graph, its static scalar vector and state,
     the fields the frame writes, its metrics (and which of them are state
-    fields), and the launches one replay makes."""
+    fields), and what one replay counts: ``launches`` maps each kernel
+    counter the captured body moved to how far it moved."""
 
     def __init__(self, graph, vec, static, written, metrics, alias, launches, name):
         self.graph = graph
@@ -175,7 +160,8 @@ class Graph:
             with annotate("pyqmd.graph.replay"):
                 for _ in range(frames):
                     self.graph.replay()
-                    _set_counters([a + d for a, d in zip(read_counters(), self.launches)])
+                    for name, n in self.launches.items():
+                        count(name, n)
                     count("graph.replays")
             with annotate("pyqmd.graph.copy_out"):
                 return self.copy_out(state)
@@ -257,7 +243,6 @@ class FrameGraphs:
                  dev: _Device) -> NucleusState:
         """The call's first frame, eagerly, on the side stream."""
         with annotate("pyqmd.graph.warm_up"):
-            _build.library()
             current = torch.cuda.current_stream()
             dev.side.wait_stream(current)
             with torch.cuda.stream(dev.side):
@@ -290,15 +275,18 @@ class FrameGraphs:
                     raise ValueError(f"the frame's {f} is a view of its input")
                 static[f].copy_(getattr(out, f))
 
-        before = read_counters()
+        # Only the kernels' counters: another thread's count during the
+        # capture (a sync, a drain) is its own, never a replay's.
+        before = {k: v for k, v in counters().items() if k.startswith("kernels.")}
         try:
             with annotate("pyqmd.graph.capture"):
                 graph = _record(frame, dev)
         except Exception as e:
             raise RuntimeError(f"capture of the frame graph of bucket {name} failed: {e}") from e
         finally:
-            launches = [a - b for a, b in zip(read_counters(), before)]
-            _set_counters(before)
+            now = counters()
+            launches = {k: now[k] - v for k, v in before.items() if now[k] != v}
+            restore_counters(before)
         self.captures += 1
         count("graph.captures")
         out, metrics = held["out"], held["metrics"]

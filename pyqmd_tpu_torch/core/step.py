@@ -25,11 +25,7 @@ import torch
 
 from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.config import SimConfig
-from pyqmd_tpu_torch.core.decay import (  # noqa: F401  (advance_ejecta: step's name of it)
-    advance_ejecta,
-    pack_nucleon_bits,
-    unpack_alive_ptype,
-)
+from pyqmd_tpu_torch.core.decay import pack_nucleon_bits, unpack_alive_ptype
 from pyqmd_tpu_torch.core.dynamics import (
     FrameDynamics,
     FrameScalars,
@@ -113,30 +109,6 @@ def _frame_clock(
     """Clock advance and the frame's :class:`FrameDynamics` (host f32)."""
     dyn = frame_dynamics(cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt)
     return _advance_clock(states, frame_scalars(dyn, cfg, states.time_passed.device)), dyn
-
-
-def _key_tree(rng: torch.Tensor, num_steps: int):
-    """The per-nucleus key tree: base key → 3-way split (substeps,
-    overlap, next) → per-substep keys (S, B, 2)."""
-    k3 = prng.split(rng, 3)  # (B, 3, 2)
-    return k3, prng.split(k3[:, 0], num_steps).transpose(0, 1)
-
-
-def _batched_frame_preamble(
-    states: NucleusState,
-    cfg: SimConfig,
-    time_scale,
-    frame_dt,
-    num_steps: int,
-    physics_dt,
-    raw_physics_dt,
-):
-    """The frame's :class:`FrameScalars`, the clock advance and the key
-    tree: ``(states, scalars, k3, step_keys)``."""
-    dyn = frame_dynamics(cfg, time_scale, frame_dt, num_steps, physics_dt, raw_physics_dt)
-    sc = frame_scalars(dyn, cfg, states.pos.device)
-    states = _advance_clock(states, sc)
-    return (states, sc, *_key_tree(states.rng, num_steps))
 
 
 def frame_body(

@@ -1,6 +1,5 @@
 // The statistics-only decay of every nucleus, one thread each: a whole
-// frame of substeps per launch (pyqmd_decay_stats_frame), or one substep
-// under given keys (pyqmd_decay_stats).
+// frame of substeps per launch (pyqmd_decay_stats_frame).
 //
 // Replaces the TPU kernel pyqmd_tpu/kernels/decay_pallas.py:_decay_stats_kernel
 // (with its _sublane_cumsum rank masks) together with the JAX frame's
@@ -38,11 +37,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads) decay_stats_kernel(PqDecayView v, int64_t B) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i < B) pq_decay_stats_nucleus(v, i);
-}
-
 __global__ void __launch_bounds__(kThreads)
     decay_stats_frame_kernel(PqDecayView v, int64_t B, int num_steps, int64_t* next_rng) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -53,31 +47,13 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Scalars (B,) z, n, chain_cursor int32, half_life, time_passed,
-// last_decay_time f32; decay_counts (B, 8) int32; alive/proton words (B, W)
-// int64; chain rings (B, C) int32 x5 and f32; keys (B, 2) int64; rows
-// (CELLS, 16) f32; all contiguous on the device. Updates the carry in place
-// on `stream` and returns cudaGetLastError().
-int pyqmd_decay_stats(void* z, void* n, void* chain_cursor, void* half_life,
-                      const void* time_passed, void* last_decay_time, void* decay_counts,
-                      void* alive_bits, void* proton_bits, void* chain_z0, void* chain_n0,
-                      void* chain_dtype, void* chain_z1, void* chain_n1, void* chain_time,
-                      const void* keys, const void* rows, int B, int W, int C,
-                      float step_time, void* stream) {
-  if (B == 0) return 0;
-  const PqDecayView v = pq_decay_view(z, n, chain_cursor, half_life, time_passed,
-                                      last_decay_time, decay_counts, alive_bits, proton_bits,
-                                      chain_z0, chain_n0, chain_dtype, chain_z1, chain_n1,
-                                      chain_time, keys, rows, W, C, step_time);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  decay_stats_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(v, (int64_t)B);
-  return (int)cudaGetLastError();
-}
-
-// A whole frame of `num_steps` substeps: the arguments of
-// pyqmd_decay_stats with the members' frame keys `rng` (B, 2) int64 in
-// place of the substep keys, and `next_rng` (B, 2) int64 for the next
-// frame's keys (k3[2]); `rng` is only read.
+// A whole frame of `num_steps` substeps. Scalars (B,) z, n, chain_cursor
+// int32, half_life, time_passed, last_decay_time f32; decay_counts (B, 8)
+// int32; alive/proton words (B, W) int64; chain rings (B, C) int32 x5 and
+// f32; the members' frame keys `rng` (B, 2) int64, only read; `next_rng`
+// (B, 2) int64 for the next frame's keys (k3[2]); rows (CELLS, 16) f32; all
+// contiguous on the device. Updates the carry in place on `stream` and
+// returns cudaGetLastError().
 int pyqmd_decay_stats_frame(void* z, void* n, void* chain_cursor, void* half_life,
                             const void* time_passed, void* last_decay_time,
                             void* decay_counts, void* alive_bits, void* proton_bits,

@@ -3,9 +3,8 @@
 // the chain record's duration, the daughter half-life and the nucleon
 // bitfield update, for one substep or a whole frame. Every function is
 // __host__ __device__, so the same source also compiles with a plain C++
-// compiler: the CPU tests run pq_decay_stats_nucleus and
-// pq_decay_stats_frame_nucleus over every nucleus and hold them to the
-// plain PyTorch version (pyqmd_tpu_torch/core/decay.py, stats_only with
+// compiler: the CPU tests run pq_decay_stats_frame_nucleus over every
+// nucleus and hold it to the plain PyTorch version (pyqmd_tpu_torch/core/decay.py, stats_only with
 // packed_nucleons, over pyqmd_tpu_torch/prng.py's keys and uniforms).
 //
 // Rounding follows the plain version operation by operation. Products and
@@ -295,13 +294,6 @@ PQ_HD void pq_decay_stats_step(const PqDecayView& v, int64_t i, uint32_t k1, uin
   v.n[i] = new_n;
 }
 
-// One substep of nucleus i under its given substep key v.keys[i].
-PQ_HD void pq_decay_stats_nucleus(const PqDecayView& v, int64_t i) {
-  float hl = v.half_life[i];
-  float p = pq_decay_probability(hl, v.step_time);
-  pq_decay_stats_step(v, i, (uint32_t)v.keys[2 * i], (uint32_t)v.keys[2 * i + 1], &hl, &p);
-}
-
 // A whole statistics frame of nucleus i, whose frame key is v.keys[i] (the
 // member's rng): the frame's key tree (core/step.py), k3 = split(rng, 3),
 // substep s under split(k3[0], S)[s], then k3[2] as the next rng, written
@@ -326,9 +318,9 @@ PQ_HD void pq_decay_stats_frame_nucleus(const PqDecayView& v, int64_t i, int num
   next_rng[2 * i + 1] = (int64_t)n2;
 }
 
-// The view over the frame's carry, from the entry points' arguments (the
-// order of pyqmd_decay_stats in decay.cu; `keys` are the substep keys, or
-// the frame keys for pyqmd_decay_stats_frame).
+// The view over the frame's carry, from an entry point's arguments (the
+// order of pyqmd_decay_stats_frame in decay.cu; `keys` are the members'
+// frame keys).
 inline PqDecayView pq_decay_view(void* z, void* n, void* chain_cursor, void* half_life,
                                  const void* time_passed, void* last_decay_time,
                                  void* decay_counts, void* alive_bits, void* proton_bits,

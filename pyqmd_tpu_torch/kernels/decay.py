@@ -1,15 +1,12 @@
-"""Wrappers of the CUDA decay-statistics kernels (``csrc/decay.cu``).
+"""Wrapper of the CUDA decay-statistics kernel (``csrc/decay.cu``).
 
 :func:`decay_stats_frame` runs a whole statistics frame for every nucleus,
-its substep keys derived in the kernel from the members' frame keys, and
-:func:`decay_stats_substep` one substep under given keys; both update the
-frame's carry in place. CPU tensors take the plain version,
-:func:`pyqmd_tpu_torch.core.decay.maybe_decay` with ``stats_only=True`` and
-``packed_nucleons`` (once per substep, under the frame's key tree built by
-:mod:`pyqmd_tpu_torch.prng`), whose result is copied into the carry; CUDA
-tensors launch the kernel, or the call raises. The kernels replace
-``pyqmd_tpu/kernels/decay_pallas.py`` ``_decay_stats_kernel`` and, in the
-frame form, the JAX frame's scan over it.
+in place on the frame's carry, its substep keys derived in the kernel from
+the members' frame keys. CPU tensors take the plain version,
+:func:`_plain_substep` once per substep under the frame's key tree
+built by :mod:`pyqmd_tpu_torch.prng`; CUDA tensors launch the kernel, or
+the call raises. The kernel replaces ``pyqmd_tpu/kernels/decay_pallas.py``
+``_decay_stats_kernel`` and the JAX frame's scan over it.
 """
 
 from __future__ import annotations
@@ -23,6 +20,7 @@ from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.data import tables
 from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.state import NUM_DECAY_TYPES, NucleusState
+from pyqmd_tpu_torch.utils.profiling import count
 
 # The state fields a substep writes (it also reads time_passed).
 DECAY_FIELDS = (
@@ -31,10 +29,14 @@ DECAY_FIELDS = (
 )
 
 
-def decay_stats_substep(
+def _plain_substep(
     state: NucleusState, bits: tuple, cfg: SimConfig, keys: torch.Tensor, dyn: FrameDynamics
 ) -> None:
-    """One statistics-only decay substep, in place.
+    """One statistics-only decay substep, in place, in plain PyTorch: the
+    plain :func:`pyqmd_tpu_torch.core.decay.maybe_decay` with
+    ``stats_only=True`` and ``packed_nucleons``, its result copied into the
+    carry. :func:`decay_stats_frame` runs it on CPU tensors, and the tests
+    hold the kernel to it.
 
     ``state``'s :data:`DECAY_FIELDS` and ``bits = (alive_bits,
     proton_bits)``, (B, W) int64 words of :func:`pack_nucleon_bits
@@ -43,32 +45,13 @@ def decay_stats_substep(
     Bernoulli interval. Positions, velocities, ejecta and ``state.alive`` /
     ``state.ptype`` are neither read nor written.
     """
-    dev = state.z.device
-    if dev.type == "cpu":
-        new, _, new_bits = _plain.maybe_decay(
-            state, cfg, keys, dyn, stats_only=True, packed_nucleons=bits
-        )
-        for f in DECAY_FIELDS:
-            getattr(state, f).copy_(getattr(new, f))
-        for old, nb in zip(bits, new_bits):
-            old.copy_(nb)
-        return
-    _check_carry(state, bits, "decay_stats_substep")
-    b = state.z.shape[0]
-    _build.check_tensor(keys, "keys", (torch.int64,), (b, 2), dev)
-    rows = tables.rows_on(dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.pyqmd_decay_stats(
-            *_carry_ptrs(state, bits), keys.data_ptr(), rows.data_ptr(), b,
-            bits[0].shape[-1], state.chain_time.shape[-1], float(dyn.step_time),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.raise_on_error(err, "decay")
-    decay_stats_substep.launches += 1
-
-
-decay_stats_substep.launches = 0
+    new, _, new_bits = _plain.maybe_decay(
+        state, cfg, keys, dyn, stats_only=True, packed_nucleons=bits
+    )
+    for f in DECAY_FIELDS:
+        getattr(state, f).copy_(getattr(new, f))
+    for old, nb in zip(bits, new_bits):
+        old.copy_(nb)
 
 
 def decay_stats_frame(
@@ -78,7 +61,7 @@ def decay_stats_frame(
     """A statistics-only frame of ``num_steps`` substeps, in place; returns
     the next rng.
 
-    ``state``, ``bits`` and ``dyn`` are as for :func:`decay_stats_substep`,
+    ``state``, ``bits`` and ``dyn`` are as for :func:`_plain_substep`,
     with ``state.time_passed`` the frame clock, already advanced: every
     substep reads it. ``rng`` (B, 2) int64 are the members' frame keys; they
     are only read. Substep s runs under ``split(split(rng, 3)[:, 0],
@@ -94,7 +77,7 @@ def decay_stats_frame(
         k3 = prng.split(rng, 3)  # (B, 3, 2)
         step_keys = prng.split(k3[:, 0], num_steps).transpose(0, 1).contiguous()  # (S, B, 2)
         for keys in step_keys:
-            decay_stats_substep(state, bits, cfg, keys, dyn)
+            _plain_substep(state, bits, cfg, keys, dyn)
         return k3[:, 2].contiguous()
     _check_carry(state, bits, "decay_stats_frame")
     b = state.z.shape[0]
@@ -109,15 +92,12 @@ def decay_stats_frame(
             int(num_steps), torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on_error(err, "decay frame")
-    decay_stats_frame.launches += 1
+    count("kernels.decay_stats_frame.launches")
     return next_rng
 
 
-decay_stats_frame.launches = 0
-
-
 def _check_carry(state: NucleusState, bits: tuple, what: str) -> None:
-    """Raise unless the carry is what the kernels take: on one CUDA device,
+    """Raise unless the carry is what the kernel takes: on one CUDA device,
     the listed dtypes and shapes, contiguous, W and C at least 1."""
     dev = state.z.device
     if dev.type != "cuda":
@@ -141,7 +121,7 @@ def _check_carry(state: NucleusState, bits: tuple, what: str) -> None:
 
 
 def _carry_ptrs(state: NucleusState, bits: tuple) -> list:
-    """The carry's pointers in the order of the kernels' entry points."""
+    """The carry's pointers in the order of the kernel's entry point."""
     return [
         state.z.data_ptr(), state.n.data_ptr(), state.chain_cursor.data_ptr(),
         state.half_life.data_ptr(), state.time_passed.data_ptr(),

@@ -21,6 +21,7 @@ import torch
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import forces as _plain
 from pyqmd_tpu_torch.kernels import _build
+from pyqmd_tpu_torch.utils.profiling import count
 
 # The kernel takes up to 64 tiles of 32 slots; at P = 2000 its slots and
 # per-warp force buffers take 161 KB of shared memory, which it opts into.
@@ -108,9 +109,11 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig):
             ctypes.addressof(params), torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on_error(err, "small force" if small else "force")
-    force_step.launches += 1
-    force_step.small_launches += int(small)
-    force_step.paired_launches += int(not small and schedule(p)[1] > 0)
+    count("kernels.force_step.launches")
+    if small:
+        count("kernels.force_step.small_launches")
+    elif schedule(p)[1] > 0:
+        count("kernels.force_step.paired_launches")
     return out_pos, out_vel
 
 
@@ -126,10 +129,3 @@ def schedule(p: int) -> tuple[int, int, int]:
     if err:
         raise ValueError(f"the force kernel takes no P={p}")
     return jobs.value, paired.value, warps.value
-
-
-# Launches of either kernel, of the small-nucleus kernel among them, and of
-# the tiled kernel with a job list that holds a paired job.
-force_step.launches = 0
-force_step.small_launches = 0
-force_step.paired_launches = 0

@@ -14,6 +14,7 @@ import torch
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import overlap as _plain
 from pyqmd_tpu_torch.kernels import _build
+from pyqmd_tpu_torch.utils.profiling import count
 
 # The kernel takes up to 64 tiles of 32 slots (csrc/pair_tiles.cuh).
 MAX_PARTICLES = 2048
@@ -42,8 +43,5 @@ def overlap_step(pos, alive, u, cfg: SimConfig):
             md, md * md, md * 0.5, torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on_error(err, "overlap")
-    overlap_step.launches += 1
+    count("kernels.overlap_step.launches")
     return out
-
-
-overlap_step.launches = 0

@@ -24,6 +24,7 @@ from pyqmd_tpu_torch.core.dynamics import FrameScalars
 from pyqmd_tpu_torch.data import tables
 from pyqmd_tpu_torch.kernels import _build
 from pyqmd_tpu_torch.state import NUM_DECAY_TYPES, NucleusState
+from pyqmd_tpu_torch.utils.profiling import count
 
 # The state fields a substep writes, in the order of PqSubstepFields; it
 # also reads pos and time_passed. On the card it writes them in place.
@@ -93,11 +94,8 @@ def ejecta_decay_substep(states: NucleusState, cfg: SimConfig, sc: FrameScalars,
         err = lib.pyqmd_ejecta_decay_substep(ctypes.addressof(args),
                                              torch.cuda.current_stream().cuda_stream)
     _build.raise_on_error(err, "ejecta and decay substep")
-    ejecta_decay_substep.launches += 1
+    count("kernels.ejecta_decay_substep.launches")
     return states
-
-
-ejecta_decay_substep.launches = 0
 
 
 def _fields(states: NucleusState) -> _Fields:

@@ -17,12 +17,19 @@ check. No span is opened inside a captured CUDA graph's body, where it
 would record the capture only.
 
 **Counters** (:func:`count`, :func:`counters`) are always on, one integer
-add each: ``host.syncs`` (every blocking wait of the frame loop, the frame
-reader and the statistics functions on the card), ``graph.captures`` and
+add each, and only the names declared in ``_COUNTS`` exist: ``host.syncs``
+(every blocking wait of the frame loop, the frame reader and the
+statistics functions on the card), ``graph.captures`` and
 ``graph.replays`` (CUDA graph captures and replays), ``sim.chain_drains``
-(``Simulation``'s chain-log drains); :func:`counters` adds the kernel
-wrappers' launch counts as ``kernels.<wrapper>.<attribute>``. Like those
-launch counts they take no lock: two threads that count at once may lose
+(``Simulation``'s chain-log drains), and the launches of each kernel
+wrapper of :mod:`pyqmd_tpu_torch.kernels` as
+``kernels.<wrapper>.launches`` (the force wrapper also counts
+``.small_launches``, the sub-warp kernel's, and ``.paired_launches``,
+those of the tiled kernel with a two-row job). A CUDA graph capture takes
+a snapshot of the ``kernels.*`` counters, keeps what its body launched and
+puts that snapshot back with :func:`restore_counters`, which leaves the
+counters it does not name alone; each replay then counts those launches
+again. The counters take no lock: two threads that count at once may lose
 an add (the live viewer steps and reads its simulation under one lock).
 """
 
@@ -37,7 +44,12 @@ from collections import deque
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-_COUNTS = dict.fromkeys(("host.syncs", "graph.captures", "graph.replays", "sim.chain_drains"), 0)
+_COUNTS = dict.fromkeys((
+    "host.syncs", "graph.captures", "graph.replays", "sim.chain_drains",
+    "kernels.force_step.launches", "kernels.force_step.small_launches",
+    "kernels.force_step.paired_launches", "kernels.overlap_step.launches",
+    "kernels.decay_stats_frame.launches", "kernels.ejecta_decay_substep.launches",
+), 0)
 _NO_SPAN = contextlib.nullcontext()
 
 
@@ -116,7 +128,7 @@ def trace(log_dir: str):
     before = counters()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
-    grown = {k: v - before.get(k, 0) for k, v in counters().items()}
+    grown = {k: v - before[k] for k, v in counters().items()}
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     with open(os.path.join(log_dir, "counters.json"), "w") as f:
         json.dump(grown, f, indent=1)
@@ -132,22 +144,20 @@ def annotate(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` (one of the module's counters)."""
+    """Add ``n`` to the counter ``name``, one of ``_COUNTS``; any other
+    name raises ``KeyError``."""
     _COUNTS[name] += n
 
 
 def counters() -> dict:
-    """A snapshot of the counters, with the kernel wrappers' launch counts
-    as ``kernels.<wrapper>.<attribute>``."""
-    from pyqmd_tpu_torch.kernels.decay import decay_stats_frame, decay_stats_substep
-    from pyqmd_tpu_torch.kernels.forces import force_step
-    from pyqmd_tpu_torch.kernels.overlap import overlap_step
-    from pyqmd_tpu_torch.kernels.substep import ejecta_decay_substep
+    """A snapshot of every counter."""
+    return dict(_COUNTS)
 
-    out = dict(_COUNTS)
-    for wrapper in (force_step, overlap_step, decay_stats_frame, decay_stats_substep,
-                    ejecta_decay_substep):
-        for attr in ("launches", "small_launches", "paired_launches"):
-            if hasattr(wrapper, attr):
-                out[f"kernels.{wrapper.__name__}.{attr}"] = getattr(wrapper, attr)
-    return out
+
+def restore_counters(snapshot: dict) -> None:
+    """Put back the counters that ``snapshot`` (all or part of a
+    :func:`counters` snapshot) names; any other name raises ``KeyError``."""
+    for name, value in snapshot.items():
+        if name not in _COUNTS:
+            raise KeyError(name)
+        _COUNTS[name] = value

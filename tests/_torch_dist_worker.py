@@ -33,9 +33,6 @@ from pyqmd_tpu_torch.config import SimConfig  # noqa: E402
 from pyqmd_tpu_torch.core.dynamics import FrameScalars, frame_dynamics, scalar_values  # noqa: E402
 from pyqmd_tpu_torch.core.init import ensemble_init, init_state  # noqa: E402
 from pyqmd_tpu_torch.core.step import ensemble_step, simulate_frame  # noqa: E402
-from pyqmd_tpu_torch.kernels.forces import force_step  # noqa: E402
-from pyqmd_tpu_torch.kernels.overlap import overlap_step  # noqa: E402
-from pyqmd_tpu_torch.kernels.substep import ejecta_decay_substep  # noqa: E402
 from pyqmd_tpu_torch.parallel import (  # noqa: E402
     DATA_AXIS,
     MODEL_AXIS,
@@ -59,6 +56,7 @@ from pyqmd_tpu_torch.utils.checkpoint import (  # noqa: E402
     load_checkpoint_sharded,
     save_checkpoint_sharded,
 )
+from pyqmd_tpu_torch.utils.profiling import counters  # noqa: E402
 
 DEVICE = "cpu"  # this rank's device type, set by run_rank
 U238_TS = 3.15576e16
@@ -267,8 +265,10 @@ def factories_and_eager_forms(world, device, batch=8, steps=2):
 
 
 def _launches():
-    return (force_step.launches, force_step.small_launches, overlap_step.launches,
-            ejecta_decay_substep.launches)
+    c = counters()
+    return tuple(c[f"kernels.{k}"] for k in ("force_step.launches", "force_step.small_launches",
+                                             "overlap_step.launches",
+                                             "ejecta_decay_substep.launches"))
 
 
 def factories_against_eager(world, device) -> dict:

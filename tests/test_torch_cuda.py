@@ -20,9 +20,9 @@ from pyqmd_tpu_torch import Simulation, cli, load_checkpoint, prng
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import decay, forces, overlap
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
-from pyqmd_tpu_torch.core.init import ensemble_init
+from pyqmd_tpu_torch.core.init import ensemble_init, mixed_ensemble_init
 from pyqmd_tpu_torch.kernels import _build
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame
 from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.kernels.overlap import overlap_step
 from pyqmd_tpu_torch.kernels.substep import SUBSTEP_FIELDS, ejecta_decay_substep
@@ -33,6 +33,11 @@ from pyqmd_tpu_torch.utils import profiling
 pytestmark = pytest.mark.cuda
 
 DT = 1 / 240.0
+
+
+def _n(counter: str) -> int:
+    """The launches counted as ``kernels.<counter>``."""
+    return profiling.counters()[f"kernels.{counter}"]
 
 
 @pytest.fixture
@@ -67,11 +72,11 @@ def test_force_kernel_matches_plain(dev, p, b, alive_first, integrator):
         alive = (torch.arange(p, device=dev) < alive_first).expand(b, p).contiguous()
     exact = dataclasses.replace(base, fast_math=False)
     ref = forces.force_step(pos, vel, ptype, alive, DT, exact)
-    before, paired_before = force_step.launches, force_step.paired_launches
+    before, paired_before = _n("force_step.launches"), _n("force_step.paired_launches")
     got = force_step(pos, vel, ptype, alive, DT, exact)
     fast = force_step(pos, vel, ptype, alive, DT, base)
-    assert force_step.launches == before + 2
-    assert force_step.paired_launches == paired_before + 2 * (p >= 65)
+    assert _n("force_step.launches") == before + 2
+    assert _n("force_step.paired_launches") == paired_before + 2 * (p >= 65)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
     for g, r in zip(fast, ref):
@@ -88,10 +93,11 @@ def test_small_force_kernel_matches_plain(dev, p, b, integrator):
     alive[1] = False
     exact = dataclasses.replace(base, fast_math=False)
     ref = forces.force_step(pos, vel, ptype, alive, DT, exact)
-    before, small_before = force_step.launches, force_step.small_launches
+    before, small_before = _n("force_step.launches"), _n("force_step.small_launches")
     got = force_step(pos, vel, ptype, alive, DT, exact)
     fast = force_step(pos, vel, ptype, alive, DT, dataclasses.replace(base, fast_math=True))
-    assert force_step.launches == before + 2 and force_step.small_launches == small_before + 2
+    assert _n("force_step.launches") == before + 2
+    assert _n("force_step.small_launches") == small_before + 2
     for g, f, r in zip(got, fast, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(f, r, rtol=0, atol=5e-3)
@@ -100,24 +106,38 @@ def test_small_force_kernel_matches_plain(dev, p, b, integrator):
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
+def test_small_force_kernel_on_a_million_nuclei(dev):
+    """He-4 (P=8) at the 1,048,576 members of a large ensemble, from
+    ``ensemble_init``'s state and with fast math, as the frames run it:
+    one sub-warp launch, within 5e-3 of the plain version."""
+    cfg = SimConfig.for_isotope(2, 2, pad_to=8)
+    st = ensemble_init(cfg, 1_048_576, seed=1, device=dev)
+    small = _n("force_step.small_launches")
+    got = force_step(st.pos, st.vel, st.ptype, st.alive, DT, cfg)
+    assert _n("force_step.small_launches") == small + 1
+    for g, r in zip(got, forces.force_step(st.pos, st.vel, st.ptype, st.alive, DT, cfg)):
+        torch.testing.assert_close(g, r, rtol=0, atol=5e-3)
+
+
 def test_force_kernel_route_is_set_by_capacity_alone(dev):
     for p, small in ((32, 1), (33, 0)):
         pos, vel, ptype, alive, _ = _batch(dev, 4, p, 20.0, seed=p)
-        before, small_before = force_step.launches, force_step.small_launches
+        before, small_before = _n("force_step.launches"), _n("force_step.small_launches")
         force_step(pos, vel, ptype, alive, DT, SimConfig.for_isotope(2, 2, pad_to=p))
-        assert force_step.launches == before + 1
-        assert force_step.small_launches == small_before + small
+        assert _n("force_step.launches") == before + 1
+        assert _n("force_step.small_launches") == small_before + small
 
 
-@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (33, 21), (600, 3), (2000, 2)])
+@pytest.mark.parametrize("p,b", [(256, 16), (100, 9), (8, 70), (5, 77), (20, 45), (33, 21),
+                                 (600, 3), (2000, 2)])
 def test_overlap_kernel_matches_plain(dev, p, b):
     cfg = SimConfig.for_isotope(2, 2, pad_to=p)
     pos, _, _, alive, u = _batch(dev, b, p, 10.0 if p > 8 else 4.0, seed=3 * p + b)
     pos[:, :3] = 400.0  # coincident nucleons
     alive[:, :3] = True
-    before = overlap_step.launches
+    before = _n("overlap_step.launches")
     got = overlap_step(pos, alive, u, cfg)
-    assert overlap_step.launches == before + 1
+    assert _n("overlap_step.launches") == before + 1
     torch.testing.assert_close(got, overlap.resolve_overlaps(pos, alive, u, cfg),
                                rtol=1e-4, atol=1e-4)
 
@@ -227,9 +247,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 def _decay_carry(dev, zn, pad_to, b, step_time, seed):
     """A state on the card with half-lives around ``step_time``, its
-    bitfields, substep keys and dynamics."""
-    cfg = SimConfig.for_isotope(*zn, pad_to=pad_to, max_chain_log=8)
-    st = ensemble_init(cfg, b, seed=seed, device=dev)
+    bitfields, frame keys and dynamics."""
+    if isinstance(zn, list):  # a mixture of (Z, N, members)
+        cfg = SimConfig.for_isotope(*zn[0][:2], pad_to=pad_to, max_chain_log=8)
+        st = mixed_ensemble_init(cfg, zn, seed=seed, device=dev)
+    else:
+        cfg = SimConfig.for_isotope(*zn, pad_to=pad_to, max_chain_log=8)
+        st = ensemble_init(cfg, b, seed=seed, device=dev)
     g = np.random.default_rng(seed)
     hl = torch.from_numpy((step_time * 10.0 ** g.uniform(-2, 2, b)).astype(np.float32))
     st = st.replace(half_life=hl.to(dev), time_passed=torch.full((b,), 3e9, device=dev))
@@ -237,41 +261,6 @@ def _decay_carry(dev, zn, pad_to, b, step_time, seed):
     dyn = FrameDynamics(np.float32(1.0), np.float32(1.0), np.float32(cfg.effective_dt()),
                         np.float32(step_time), None)
     return cfg, st, decay.pack_nucleon_bits(st.alive, st.ptype), keys, dyn
-
-
-@pytest.mark.parametrize("zn,pad_to,b", [((6, 8), 8, 4099), ((82, 132), 8, 300),
-                                         ((92, 146), 128, 64)])
-def test_decay_kernel_matches_plain(dev, zn, pad_to, b):
-    cfg, st, bits, keys, dyn = _decay_carry(dev, zn, pad_to, b, 1e9, seed=b)
-    want, _, want_bits = decay.maybe_decay(st, cfg, keys, dyn, stats_only=True,
-                                           packed_nucleons=bits)
-    got = st.replace(**{f: getattr(st, f).clone() for f in DECAY_FIELDS})
-    got_bits = tuple(x.clone() for x in bits)
-    before = decay_stats_substep.launches
-    decay_stats_substep(got, got_bits, cfg, keys, dyn)
-    assert decay_stats_substep.launches == before + 1
-    for f in DECAY_FIELDS:
-        if getattr(want, f).dtype == torch.float32:
-            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0,
-                                       msg=f)
-        else:
-            assert torch.equal(getattr(got, f), getattr(want, f)), f
-    assert all(torch.equal(a, w) for a, w in zip(got_bits, want_bits))
-    assert int((got.chain_cursor != st.chain_cursor).sum()) > b // 10
-
-
-def test_decay_wrapper_rejects_what_the_kernel_does_not_take(dev):
-    cfg, st, bits, keys, dyn = _decay_carry(dev, (6, 8), 8, 64, 1e9, seed=0)
-    with pytest.raises(TypeError):
-        decay_stats_substep(st, bits, cfg, keys.int(), dyn)
-    with pytest.raises(ValueError):
-        decay_stats_substep(st, bits, cfg, keys.cpu(), dyn)
-    with pytest.raises(ValueError):
-        decay_stats_substep(st, (bits[0], bits[1][:8]), cfg, keys, dyn)
-    with pytest.raises(TypeError):
-        decay_stats_substep(st.replace(half_life=st.half_life.double()), bits, cfg, keys, dyn)
-    with pytest.raises(ValueError):
-        decay_stats_substep(st, bits, cfg, keys.t().contiguous().t(), dyn)
 
 
 def _plain_frame(st, bits, rng, cfg, dyn, num_steps):
@@ -284,8 +273,22 @@ def _plain_frame(st, bits, rng, cfg, dyn, num_steps):
     return st, bits, k3[:, 2]
 
 
+def _assert_carry_matches(got, got_bits, want, want_bits):
+    """A statistics frame's carry against the plain frame's: integer
+    fields and bitfield words bitwise, the decay engine's floats within
+    1e-6."""
+    for f in DECAY_FIELDS:
+        if getattr(want, f).dtype == torch.float32:
+            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0,
+                                       msg=f)
+        else:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert all(torch.equal(a, w) for a, w in zip(got_bits, want_bits))
+
+
 @pytest.mark.parametrize("zn,pad_to,b", [((6, 8), 8, 4099), ((82, 132), 8, 300),
-                                         ((92, 146), 8, 200)])
+                                         ((92, 146), 8, 200),
+                                         ([(92, 146, 100), (6, 8, 100)], 8, 200)])
 def test_decay_frame_kernel_matches_plain(dev, zn, pad_to, b):
     cfg, st, bits, rng, dyn = _decay_carry(dev, zn, pad_to, b, 1e9, seed=b)
     want, want_bits, want_rng = _plain_frame(st, bits, rng, cfg, dyn, 10)
@@ -293,20 +296,15 @@ def test_decay_frame_kernel_matches_plain(dev, zn, pad_to, b):
     for _ in range(2):
         got = st.replace(**{f: getattr(st, f).clone() for f in DECAY_FIELDS})
         got_bits = tuple(x.clone() for x in bits)
-        before = decay_stats_frame.launches
+        before = _n("decay_stats_frame.launches")
         next_rng = decay_stats_frame(got, got_bits, rng, cfg, dyn, 10)
-        assert decay_stats_frame.launches == before + 1
+        assert _n("decay_stats_frame.launches") == before + 1
         runs.append((got, got_bits, next_rng))
     got, got_bits, next_rng = runs[0]
     assert torch.equal(next_rng, want_rng)
+    _assert_carry_matches(got, got_bits, want, want_bits)
     for f in DECAY_FIELDS:
-        if getattr(want, f).dtype == torch.float32:
-            torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-6, atol=0,
-                                       msg=f)
-        else:
-            assert torch.equal(getattr(got, f), getattr(want, f)), f
         assert torch.equal(getattr(runs[1][0], f), getattr(got, f)), f
-    assert all(torch.equal(a, w) for a, w in zip(got_bits, want_bits))
     assert all(torch.equal(a, w) for a, w in zip(runs[1][1], got_bits))
     assert torch.equal(runs[1][2], next_rng)
     assert int((got.chain_cursor != st.chain_cursor).sum()) > b // 10
@@ -324,6 +322,8 @@ def test_decay_frame_wrapper_rejects_what_the_kernel_does_not_take(dev):
         decay_stats_frame(st, (bits[0], bits[1][:8]), rng, cfg, dyn, 10)
     with pytest.raises(ValueError):
         decay_stats_frame(st, bits, rng, cfg, dyn, -1)
+    with pytest.raises(TypeError):
+        decay_stats_frame(st.replace(half_life=st.half_life.double()), bits, rng, cfg, dyn, 10)
 
 
 # --- the full-physics substep kernel (csrc/substep.cu) -----------------------
@@ -391,9 +391,9 @@ def test_substep_kernel_matches_plain_on_the_card(dev, case):
     for s in range(2):
         keys = prng.split(k3[:, 0], 20)[:, s]
         want = decay.maybe_decay(decay.advance_ejecta(want, cfg, sc), cfg, keys, sc)[0]
-        before = ejecta_decay_substep.launches
+        before = _n("ejecta_decay_substep.launches")
         assert ejecta_decay_substep(got, cfg, sc, k3, s) is got
-        assert ejecta_decay_substep.launches == before + 1
+        assert _n("ejecta_decay_substep.launches") == before + 1
         for f in SUBSTEP_INTS + SUBSTEP_CLOCK + ("pos", "vel", "ej_vel"):
             assert torch.equal(getattr(got, f), getattr(want, f)), (s, f)
         torch.testing.assert_close(got.ej_pos, want.ej_pos, rtol=1e-4, atol=1e-4)
@@ -437,9 +437,9 @@ def test_substep_kernel_frames_on_the_card_equal_the_cpu(dev, b):
     frames = 1 if b > 1 else 3
     got, want = st, st.to("cpu")
     for _ in range(frames):
-        before = ejecta_decay_substep.launches
+        before = _n("ejecta_decay_substep.launches")
         got, _ = fn(got, 3.15576e16, 1 / 60)
-        assert ejecta_decay_substep.launches == before + 20
+        assert _n("ejecta_decay_substep.launches") == before + 20
         want, _ = bare(want, cfg, 3.15576e16, 1 / 60, 20, cfg.effective_dt(), cfg.physics_dt)
     a, c = state_to_numpy(want), state_to_numpy(got)
     for f in SUBSTEP_INTS:
@@ -476,10 +476,10 @@ def test_fence_waits_for_an_event_on_the_card(dev):
 def test_frames_in_flight_on_the_card(dev):
     sim = Simulation(z=6, n=8, pad_to=8, ensemble=64, device=dev)
     sim.set_preset("billion")
-    small = force_step.small_launches
+    small = _n("force_step.small_launches")
     for _ in range(8):
         sim.frame()
-    assert force_step.small_launches - small == 8 * 20
+    assert _n("force_step.small_launches") - small == 8 * 20
     assert len(sim._inflight) == 3 and all(f.event is not None for f in sim._inflight)
     assert sim._nan_slots.is_pinned() and sim.fps > 0
     status = sim.status()
@@ -529,6 +529,8 @@ def test_simulation_on_the_card_equals_the_cpu(dev, zn, pad_to, ensemble):
     if not ensemble:
         assert sims[1].decay_log == sims[0].decay_log and sims[1].decay_log
         assert sc["backend"] == "cuda" and sa["backend"] == "cpu"
+        for k in ("z", "n", "ejecta", "time_passed"):
+            assert sc[k] == sa[k], k
 
 
 def test_checkpoint_crosses_devices(dev, tmp_path):
@@ -550,16 +552,17 @@ def test_checkpoint_crosses_devices(dev, tmp_path):
 
 def test_cli_runs_on_the_card_by_default(dev, tmp_path, capsys):
     png = tmp_path / "o.png"
-    before = force_step.launches
+    before = _n("force_step.launches")
     assert cli.main(["--isotope", "C-14", "--frames", "3", "--time-scale", "1e9yr", "-q",
                      "--status-json", "--render", str(png), "--width", "160",
                      "--height", "120"]) == 0
-    assert force_step.launches - before == 3 * 20
+    assert _n("force_step.launches") - before == 3 * 20
     out = capsys.readouterr().out
     assert '"backend": "cuda"' in out and png.read_bytes()[:4] == b"\x89PNG"
 
 
-@pytest.mark.parametrize("size,zoom", [((320, 240), 15.0), ((160, 120), 4.0), ((64, 48), 100.0)])
+@pytest.mark.parametrize("size,zoom", [((800, 600), 15.0), ((320, 240), 15.0), ((160, 120), 4.0),
+                                       ((64, 48), 100.0)])
 def test_the_card_renders_what_the_cpu_renders(dev, size, zoom):
     sim = Simulation(z=92, n=146, pad_to=128, seed=0, device="cpu")
     for _ in range(3):
@@ -667,19 +670,442 @@ def test_viewer_threads_run_the_kernels_on_the_simulations_device(dev):
     srv.start_background()
     try:
         url = f"http://127.0.0.1:{srv.port}"
-        before = force_step.launches
+        before = _n("force_step.launches")
         req = urllib.request.urlopen(url + "/stream", timeout=60)
         buf = b""
         while buf.count(b"--pyqmd-frame") < 4:
             buf += req.read(1024)
         req.close()
         frames = sim.frame_count
-        assert frames >= 3 and force_step.launches - before >= frames * 20
+        assert frames >= 3 and _n("force_step.launches") - before >= frames * 20
         status = json.loads(urllib.request.urlopen(url + "/status", timeout=60).read())
         assert status["backend"] == "cuda"
         assert urllib.request.urlopen(url + "/frame", timeout=60).read()[:4] == b"\x89PNG"
     finally:
         srv.close()
+
+
+# --- what users run on the card end to end: statistics, the host loop of an
+# ensemble, the viewer, the command line and the examples ---
+
+
+@pytest.mark.parametrize("zn,pad_to,b,ts", [((92, 146), 128, 8, 3.15576e18),
+                                            ((2, 2), 8, 1001, 3.15576e16)])
+def test_ensemble_frame_on_the_card_equals_the_cpu(dev, zn, pad_to, b, ts):
+    """``ensemble_init`` and one frame of ``make_frame_fn`` from the same
+    seed on both devices (He-4 at B=1001: 8008 lanes, so the sub-warp
+    kernel's last warp is ragged): integer fields and rng bitwise after
+    the init and after the frame, pos/vel within 1e-3; the capacity picks
+    the force kernel."""
+    from pyqmd_tpu_torch.core import step
+
+    cfg = SimConfig.for_isotope(*zn, pad_to=pad_to)
+    steps = cfg.num_substeps(1 / 60, ts)
+    cpu, card = (ensemble_init(cfg, b, seed=5, device=d) for d in ("cpu", dev))
+    a, c = state_to_numpy(cpu), state_to_numpy(card)
+    for f in _torch_parity.INT_FIELDS:
+        np.testing.assert_array_equal(c[f], a[f], err_msg=f"init {f}")
+    fn = step.make_frame_fn(cfg, steps, batched=True)
+    small = _n("force_step.small_launches")
+    card, _ = fn(cpu.to(dev), ts, 1 / 60)  # from the same floats as the CPU frame
+    assert _n("force_step.small_launches") - small == (steps if cfg.max_particles <= 32 else 0)
+    cpu, _ = fn(cpu, ts, 1 / 60)
+    a, c = state_to_numpy(cpu), state_to_numpy(card)
+    for f in _torch_parity.INT_FIELDS:
+        np.testing.assert_array_equal(c[f], a[f], err_msg=f)
+    np.testing.assert_allclose(c["pos"], a["pos"], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(c["vel"], a["vel"], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("zn,b,ts", [((6, 8), 4096, 1.8e10), ((92, 146), 64, 1.4e16)])
+def test_decay_frames_on_the_card_equal_the_cpu(dev, zn, b, ts):
+    """Three statistics frames (``make_decay_frame_fn``, one frame-kernel
+    launch each on the card) from the same state on both devices: integer
+    fields and rng bitwise, the decay engine's floats within 1e-6."""
+    from pyqmd_tpu_torch import make_decay_frame_fn
+
+    cfg = SimConfig.for_isotope(*zn, pad_to=8)
+    fn = make_decay_frame_fn(cfg, 10)
+    cpu = ensemble_init(cfg, b, seed=6, device="cpu")
+    card = cpu.to(dev)
+    before = _n("decay_stats_frame.launches")
+    for _ in range(3):
+        cpu, _ = fn(cpu, ts, 1.0)
+        card, m = fn(card, ts, 1.0)
+    assert _n("decay_stats_frame.launches") == before + 3
+    assert int(m["total_decay_counts"].sum()) > 0
+    a, c = state_to_numpy(cpu), state_to_numpy(card)
+    for f in _torch_parity.INT_FIELDS:
+        np.testing.assert_array_equal(c[f], a[f], err_msg=f)
+    for f in ("half_life", "last_decay_time", "chain_time"):
+        np.testing.assert_allclose(c[f], a[f], rtol=1e-6, atol=0, err_msg=f)
+
+
+def test_survival_curve_on_the_card(dev):
+    """C-14 at 262,144 nuclei, 20 frames over two half-lives: one
+    frame-kernel launch a frame, a survival curve that never rises, and the
+    fit within 1% of 5,730 years (four standard errors at this batch)."""
+    from pyqmd_tpu_torch import analysis
+
+    before = _n("decay_stats_frame.launches")
+    res = analysis.survival_curve(6, 8, batch=262_144, frames=20, half_lives=2.0, device=dev)
+    assert _n("decay_stats_frame.launches") == before + 20
+    assert res.survival.shape == (21,) and np.all(np.diff(res.survival) <= 0)
+    assert 0.2 < res.survival[-1] < 0.3 and res.rel_error < 0.01, res.rel_error
+
+
+def test_chain_populations_on_the_card(dev):
+    """U-238 down its chain at 4,096 nuclei, 30 frames over three
+    half-lives: one frame-kernel launch a frame, populations that sum to the
+    batch at every time and that are the frame loop's own final state; each
+    member's alive nucleons and protons agree with its decay counts (counts,
+    not (Z, N): two chain-data branches carry a mode that does not match
+    their step). Then the frame kernel against the plain frame on the
+    loop's next frame, where members past Pb-214 write over the oldest
+    records of their 8-slot chain ring: integers and rng bitwise."""
+    from pyqmd_tpu_torch import analysis
+    from pyqmd_tpu_torch.core import step
+    from pyqmd_tpu_torch.state import (
+        DECAY_ALPHA,
+        DECAY_BETA_MINUS,
+        DECAY_BETA_PLUS,
+        DECAY_NEUTRON_EMISSION,
+        DECAY_PROTON_EMISSION,
+        PROTON,
+    )
+
+    b = 4096
+    before = _n("decay_stats_frame.launches")
+    out = analysis.chain_populations(92, 146, batch=b, frames=30, half_lives=3.0, device=dev)
+    assert _n("decay_stats_frame.launches") == before + 30
+    pops = out["populations"]
+    assert all(sum(v[t] for v in pops.values()) == b for t in range(31))
+    _, cfg, final, fn, sim_dt = analysis._ensemble_setup(92, 146, b, 30, 3.0, 10, 0, 8, True, 8,
+                                                         None, dev)
+    for _ in range(30):
+        final, _ = fn(final, sim_dt, 1.0)
+    zn, cnt = np.unique(torch.stack([final.z, final.n], 1).cpu().numpy(), axis=0,
+                        return_counts=True)
+    assert {f"{z}:{n}": int(c) for (z, n), c in zip(zn, cnt)} == {
+        k: v[-1] for k, v in pops.items() if v[-1]}
+    counts = final.decay_counts.long()
+    alpha, emit_n, emit_p = (counts[:, k] for k in (DECAY_ALPHA, DECAY_NEUTRON_EMISSION,
+                                                    DECAY_PROTON_EMISSION))
+    beta = counts[:, DECAY_BETA_MINUS] - counts[:, DECAY_BETA_PLUS]
+    assert torch.equal(final.alive.sum(-1), 238 - 4 * alpha - emit_n - emit_p)
+    assert torch.equal((final.alive & (final.ptype == PROTON)).sum(-1),
+                       92 - 2 * alpha - emit_p + beta)
+    adv, dyn = step._frame_clock(final, cfg, sim_dt, 1.0, 10, cfg.effective_dt(), cfg.physics_dt)
+    bits = decay.pack_nucleon_bits(adv.alive, adv.ptype)
+    want, want_bits, want_rng = _plain_frame(adv, bits, adv.rng, cfg, dyn, 10)
+    got = adv.replace(**{f: getattr(adv, f).clone() for f in DECAY_FIELDS})
+    got_bits = tuple(x.clone() for x in bits)
+    assert torch.equal(decay_stats_frame(got, got_bits, adv.rng, cfg, dyn, 10), want_rng)
+    _assert_carry_matches(got, got_bits, want, want_bits)
+    fired = got.chain_cursor - adv.chain_cursor
+    assert int(((fired > 0) & (got.chain_cursor > cfg.max_chain_log)).sum()) > 0  # ring wrapped
+
+
+@pytest.mark.parametrize("zn,pad_to,b", [((92, 146), 128, 1024), ((2, 2), 8, 256)])
+def test_simulation_ensemble_on_the_card(dev, zn, pad_to, b):
+    """``Simulation`` of an ensemble at the billion preset: eight frames in
+    flight (one force launch a substep, of the capacity's kernel, one
+    overlap launch a frame), ``status()`` against sums over the state, the
+    NaN guard quiet; three frames, a fused run and two rasterized frames
+    that make no synchronising call and a ``status()`` that makes one; then
+    ``run(9, fused=True)`` on a second Simulation of the same seed, every
+    field bitwise the frame loop's."""
+    import logging
+    import warnings
+
+    from pyqmd_tpu_torch.render import render_frame
+
+    sims = [Simulation(z=zn[0], n=zn[1], ensemble=b, pad_to=pad_to, seed=s, device=dev)
+            for s in (0, 2, 0)]
+    sim, probe, fused = sims
+    for s in sims:
+        s.set_preset("billion")
+    sim.nan_check_interval = 3
+    probe.nan_check_interval = 0
+    small = sim.cfg.max_particles <= 32
+    caught_log = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = caught_log.append
+    logging.getLogger("pyqmd_tpu_torch").addHandler(handler)
+    try:
+        sim.frame()
+        for _ in range(8):
+            before = _launches()
+            sim.frame()
+            grown = [a - c for a, c in zip(_launches(), before)]
+            assert grown == [20, 20 * small, 1, 20], grown
+    finally:
+        logging.getLogger("pyqmd_tpu_torch").removeHandler(handler)
+    assert not caught_log and sim.substeps_used == 20
+    assert len(sim._inflight) == 3
+    status, st = sim.status(), sim.state
+    assert status["alive"] == int(st.alive.sum()) and status["ensemble"] == b
+    assert status["decay_counts"] == st.decay_counts.sum(0).tolist() and status["substeps"] == 20
+    assert status["fps"] > 0 and status["substeps_per_sec"] > 0
+    assert bool(torch.isfinite(st.pos).all())
+    assert (sum(status["decay_counts"]) > 0) == (zn[0] > 2)
+
+    # The first picture copies the tables to the card and the first fused
+    # run captures its graph: both wait for the card, so they come first.
+    render_frame(probe.state, (400.0, 400.0), 15.0, 160, 120)
+    probe.run(2, fused=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            probe.frame()
+        probe.run(2, fused=True)
+        render_frame(probe.state, (400.0, 400.0), 15.0, 160, 120, index=3)
+        probe.render_fit_device(160, 120, index=3)
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            probe.status()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sum("synchroniz" in str(w.message) for w in caught) == 1
+
+    metrics = fused.run(9, fused=True)
+    _assert_states_equal(fused.state, st)
+    assert int(metrics["total_alive"]) == status["alive"] and fused.frame_count == 9
+
+
+def test_viewer_on_the_card_serves_one_sequence_and_answers_errors(dev):
+    """``LiveViewServer`` on a U-238 nucleus on the card: the page, a
+    ``/frame`` PNG, strict-JSON ``/status``, ``faster`` and ``decay``
+    controls, 400 for a bad action and 404 for a bad path; two ``/stream``
+    readers at once see the same frames in the same order while the
+    simulation makes one frame per picture, 20 force launches each; the
+    server's thread ends at ``close()``."""
+    import hashlib
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from pyqmd_tpu_torch.render.httpview import LiveViewServer
+
+    sim = Simulation(z=92, n=146, seed=0, pad_to=128, device=dev)
+    sim.set_preset("billion")
+    server = LiveViewServer(sim, port=0, fps=30, width=320, height=240)
+    thread = server.start_background()
+    url = f"http://127.0.0.1:{server.port}"
+
+    def get(path):
+        return urllib.request.urlopen(url + path, timeout=120).read()
+
+    def status():
+        return json.loads(get("/status"), parse_constant=lambda c: pytest.fail(c))
+
+    def error(path):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            get(path)
+        return e.value.code
+
+    def read_stream(parts):
+        req = urllib.request.urlopen(url + "/stream", timeout=120)
+        buf = b""
+        while buf.count(b"--pyqmd-frame") < 8:
+            buf += req.read1(65536)
+        req.close()
+        parts += [hashlib.sha1(p.split(b"\r\n\r\n", 1)[1]).hexdigest()
+                  for p in buf.split(b"--pyqmd-frame")[1:-1]]
+
+    try:
+        page = get("/")
+        assert b"/stream" in page and b"/control" in page
+        assert get("/frame")[:8] == b"\x89PNG\r\n\x1a\n"
+        first = status()
+        assert first["isotope"] == "U-238" and first["backend"] == "cuda"
+        assert json.loads(get("/control?do=faster")) == {"ok": True}
+        assert status()["time_scale"] == first["time_scale"] * 10
+        get("/control?do=decay")
+        assert sum(status()["decay_counts"]) == sum(first["decay_counts"]) + 1
+        assert error("/control?do=nope") == 400 and error("/nope") == 404
+        server.pump_frame(-1)
+        with server.lock:
+            frames, force = sim.frame_count, _n("force_step.launches")
+        readers = [[], []]
+        threads = [threading.Thread(target=read_stream, args=(r,)) for r in readers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        with server.lock:
+            made, launched = sim.frame_count - frames, _n("force_step.launches") - force
+    finally:
+        server.close()
+    thread.join(10)
+    assert not thread.is_alive()
+    assert made >= 2 and launched == made * sim.substeps_used, (made, launched)
+    both = [p for p in readers[0] if p in readers[1]]
+    assert len(both) >= 2
+    runs = [r[r.index(both[0]):r.index(both[-1]) + 1] for r in readers]
+    assert runs[0] == runs[1] == both
+
+
+@pytest.fixture
+def in_tmp(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def _cli_out(capsys, args) -> str:
+    assert cli.main(args) == 0, args
+    return capsys.readouterr().out
+
+
+def test_cli_statistics_and_checkpoints_on_the_card(dev, in_tmp, capsys):
+    """On the card, its default: an ensemble run saved and resumed with
+    ``--load``; ``--survival`` of C-14 (the fit within 1%, the CSV's 21
+    time points) and ``--populations`` with ``--theory`` for U-238 (every
+    row sums to the batch, every theory row to one)."""
+    import json
+
+    out = _cli_out(capsys, ["--isotope", "U-238", "--ensemble", "64", "--frames", "3",
+                            "--save", "run.npz", "--status-json", "-q"])
+    status = json.loads(out.strip().splitlines()[-1])
+    assert status["ensemble"] == 64 and status["isotope"] == "U-238 x64"
+    state, _ = load_checkpoint("run.npz")
+    assert state.pos.is_cuda and int(state.alive.sum()) == status["alive"]
+    out = _cli_out(capsys, ["--load", "run.npz", "--frames", "2", "--status-json", "-q"])
+    assert json.loads(out.strip().splitlines()[-1])["ensemble"] == 64
+
+    before = _n("decay_stats_frame.launches")
+    out = _cli_out(capsys, ["--isotope", "C-14", "--ensemble", "262144", "--survival", "c14.csv",
+                            "-q"])
+    assert _n("decay_stats_frame.launches") > before
+    assert json.loads(out.strip().splitlines()[-1])["rel_error"] < 0.01
+    rows = (in_tmp / "c14.csv").read_text().strip().splitlines()
+    assert rows[0] == "time_s,survival,activity_per_s" and len(rows) == 22
+
+    _cli_out(capsys, ["--isotope", "U-238", "--ensemble", "4096", "--populations", "pops.csv",
+                      "--theory", "theory.csv", "--frames", "30", "--half-lives", "3", "-q"])
+    lines = (in_tmp / "pops.csv").read_text().strip().splitlines()
+    assert len(lines) == 32
+    assert all(sum(int(v) for v in line.split(",")[1:]) == 4096 for line in lines[1:])
+    theory = np.loadtxt(in_tmp / "theory.csv", delimiter=",", skiprows=1)
+    assert theory.shape[0] == 31
+    np.testing.assert_allclose(theory[:, 1:].sum(1), 1.0, atol=1e-6)
+
+
+def test_cli_watch_and_serve_on_the_card(dev, capsys, monkeypatch):
+    """The REPL's ``watch`` (ANSI frames of a U-238 nucleus on the card, 20
+    force launches a frame) and ``--serve`` (one ``/frame`` and
+    ``/status`` through the real accept loop, left as a Ctrl-C leaves it)."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from pyqmd_tpu_torch.render.httpview import LiveViewServer
+
+    monkeypatch.setattr("sys.stdin", io.StringIO("watch 0.5\nquit\n"))
+    before = _n("force_step.launches")
+    watched = _cli_out(capsys, ["--isotope", "U-238", "--time-scale", "1e9yr", "-i", "-q"])
+    assert watched.count("\x1b[2J\x1b[H") >= 1 and "\x1b[38;2;" in watched
+    assert "substeps=20" in watched and "error:" not in watched
+    assert _n("force_step.launches") - before >= 20
+
+    served, real_loop = {}, LiveViewServer.serve_forever
+
+    def one_frame_then_interrupt(self):
+        thread = threading.Thread(target=real_loop, args=(self,), daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{self.port}"
+            served["png"] = urllib.request.urlopen(url + "/frame", timeout=120).read()[:4]
+            served["backend"] = json.loads(
+                urllib.request.urlopen(url + "/status", timeout=120).read())["backend"]
+        finally:
+            self.close()
+            thread.join(10)
+        served["thread_ended"] = not thread.is_alive()
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(LiveViewServer, "serve_forever", one_frame_then_interrupt)
+    _cli_out(capsys, ["--isotope", "C-14", "--serve", "0", "-q"])
+    assert served == {"png": b"\x89PNG", "backend": "cuda", "thread_ended": True}
+
+
+def test_examples_run_on_the_card(dev, tmp_path):
+    """Every script of ``examples_torch/`` on its default device, the card:
+    the others as processes of their own, all at once, while
+    ``survival_curve.py`` runs in this process, where its 30 decay-frame
+    launches are counted. The C-14 fit within 1%; the Pb-214 populations
+    within 0.05 of Bateman's; the mixed ensemble's Rn-222 rows; the orders
+    of Euler and leapfrog through the sub-warp force kernel; the sharded
+    survival over NCCL, one rank per card."""
+    import contextlib
+    import io
+    import json
+    import os
+    import runpy
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    args = {"decay_chain_movie.py": ["--frames", "40"], "bateman_vs_ensemble.py": ["--frames", "5"]}
+    scripts = sorted(p.name for p in (repo / "examples_torch").glob("*.py"))
+    assert len(scripts) == 6, scripts
+    procs = {}
+    for name in scripts:
+        cwd = tmp_path / name.removesuffix(".py")
+        cwd.mkdir()
+        if name != "survival_curve.py":
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(repo / "examples_torch" / name)] + args.get(name, []),
+                cwd=cwd, env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    out = {}
+    argv, cwd = sys.argv, os.getcwd()
+    try:
+        before = _n("decay_stats_frame.launches")
+        sys.argv = ["survival_curve.py"]
+        os.chdir(tmp_path / "survival_curve")
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            runpy.run_path(str(repo / "examples_torch" / "survival_curve.py"), run_name="__main__")
+        out["survival_curve.py"] = printed.getvalue()
+        assert _n("decay_stats_frame.launches") - before == 30
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, (name, stdout[-2000:], stderr[-2000:])
+            out[name] = stdout
+    finally:
+        sys.argv = argv
+        os.chdir(cwd)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    text = out["survival_curve.py"]
+    fit = json.loads(text[:text.rindex("}") + 1])
+    assert fit["rel_error"] < 0.01 and fit["batch"] == 16384, fit
+    rows = (tmp_path / "survival_curve" / "c14_survival.csv").read_text().splitlines()
+    assert len(rows) == 32
+    worst = float(out["bateman_vs_ensemble.py"].split("worst absolute population error:")[1]
+                  .split()[0])
+    assert worst < 0.05, worst  # 4 sigma of a population share at 8192 nuclei
+    rn = [line for line in out["mixed_population.py"].splitlines() if "Rn-222:" in line]
+    assert len(rn) == 9 and "Rn-222:256" in rn[0], rn
+    table = [[float(c) for c in line.split()] for line in out["leapfrog_accuracy.py"].splitlines()
+             if line.strip().startswith("0.0")]
+    euler, leapfrog = (table[0][k] / table[1][k] for k in (1, 2))
+    assert 1.7 < euler < 2.3 and 3.0 < leapfrog < 5.0, table
+    drift = {line.split()[0]: float(line.split()[1])
+             for line in out["leapfrog_accuracy.py"].splitlines()
+             if line.strip().startswith(("euler ", "leapfrog "))}
+    assert drift["leapfrog"] < 2e-6 < 1e-2 < drift["euler"], drift
+    movie = (tmp_path / "decay_chain_movie" / "u238_chain.png").read_bytes()
+    assert b"acTL" in movie and "wrote u238_chain.png (5 frames)" in out["decay_chain_movie.py"]
+    lines = out["sharded_survival.py"].strip().splitlines()
+    cards = torch.cuda.device_count()
+    assert lines[0] == f"{1024 * cards} C-14 nuclei over {cards} devices (nccl)", lines
+    assert lines[1].startswith("survival after 2 T1/2: ") and len(lines) == 3, lines
 
 
 # --- the sharded path: a world of one on one card, NCCL ranks on several ---
@@ -907,8 +1333,8 @@ def _fresh_factories():
 
 
 def _launches():
-    return (force_step.launches, force_step.small_launches, overlap_step.launches,
-            ejecta_decay_substep.launches)
+    return tuple(_n(k) for k in ("force_step.launches", "force_step.small_launches",
+                                 "overlap_step.launches", "ejecta_decay_substep.launches"))
 
 
 @pytest.mark.parametrize("zn,pad_to,b", GRAPH_CASES)

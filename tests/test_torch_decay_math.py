@@ -1,10 +1,9 @@
 """The decay kernels' per-nucleus arithmetic (``csrc/decay_math.cuh``),
 compiled for the CPU with g++ through a small C shim, against the port's
-plain PyTorch version. ``pq_decay_stats_nucleus`` (one substep under given
-keys) and ``pq_decay_stats_frame_nucleus`` (a whole frame, its keys split
-from the member's rng) are the whole bodies of the CUDA kernels, so a
-wrong branch, slot, bit, key or draw shows up here without a GPU; the key
-split is also held to ``jax.random.split``.
+plain PyTorch version. ``pq_decay_stats_frame_nucleus`` (a frame of one
+substep or of ten, its keys split from the member's rng) is the whole body
+of the CUDA kernel, so a wrong branch, slot, bit, key or draw shows up here
+without a GPU; the key split is also held to ``jax.random.split``.
 
 Draws (threefry2x32 and the uniform mantissa trick) and every integer field,
 the bitfield words included, must be bitwise equal. Floats go through exp
@@ -31,7 +30,7 @@ from pyqmd_tpu_torch.core import decay
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.core.init import ensemble_init, mixed_ensemble_init
 from pyqmd_tpu_torch.data import tables
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, _plain_substep, decay_stats_frame
 from pyqmd_tpu_torch.state import state_to_numpy
 
 CSRC = Path(__file__).resolve().parent.parent / "pyqmd_tpu_torch" / "csrc"
@@ -40,15 +39,6 @@ SHIM = r"""
 #include "decay_math.cuh"
 
 extern "C" {
-void shim_decay_stats(void* z, void* n, void* cc, void* hl, const void* tp, void* ld,
-                      void* counts, void* ab, void* pb, void* cz0, void* cn0, void* cdt,
-                      void* cz1, void* cn1, void* ct, const void* keys, const void* rows,
-                      int B, int W, int C, float step_time) {
-  const PqDecayView v = pq_decay_view(z, n, cc, hl, tp, ld, counts, ab, pb, cz0, cn0, cdt, cz1,
-                                      cn1, ct, keys, rows, W, C, step_time);
-  for (int64_t i = 0; i < B; ++i) pq_decay_stats_nucleus(v, i);
-}
-
 void shim_decay_frame(void* z, void* n, void* cc, void* hl, const void* tp, void* ld,
                       void* counts, void* ab, void* pb, void* cz0, void* cn0, void* cdt,
                       void* cz1, void* cn1, void* ct, const void* rng, void* next_rng,
@@ -143,12 +133,6 @@ def _carry_ptrs(carry, bits):
     ]
 
 
-def _shim_substep(shim, carry, bits, keys, rows, step_time):
-    b, w = bits[0].shape
-    shim.shim_decay_stats(*_carry_ptrs(carry, bits), _ptr(keys), _ptr(rows), b, w,
-                          carry.chain_time.shape[-1], ctypes.c_float(step_time))
-
-
 def _shim_frame(shim, carry, bits, rng, rows, step_time, num_steps):
     b, w = bits[0].shape
     next_rng = torch.empty_like(rng)
@@ -184,6 +168,9 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_nucleus_transition_matches_plain(shim, case):
+    """Six frames of one substep each, every one from fresh member keys:
+    the substep runs under ``split(split(rng, 3)[:, 0], 1)[:, 0]``, and
+    the next rng is ``split(rng, 3)[:, 2]``."""
     states = CASES[case]()
     cfg = SimConfig(z=int(states.z[0]), n=int(states.n[0]), max_particles=states.alive.shape[1],
                     max_chain_log=states.chain_time.shape[1])
@@ -196,13 +183,16 @@ def test_nucleus_transition_matches_plain(shim, case):
     rows = tables.rows_on("cpu")
     fired = modes = 0
     for _ in range(6):
-        keys = _keys(rng, carry.z.shape[0])
+        frame_rng = _keys(rng, carry.z.shape[0])
+        k3 = prng.split(frame_rng, 3)
+        keys = prng.split(k3[:, 0], 1)[:, 0].contiguous()
         u0 = prng.uniform(keys, (1,))[:, 0]
         assert _near_ties(u0, carry.half_life, step_time) == 0, "a draw sits at its probability"
         want, want_bits = _clone(carry, bits)
-        decay_stats_substep(want, want_bits, cfg, keys, dyn)
+        _plain_substep(want, want_bits, cfg, keys, dyn)
         got, got_bits = _clone(carry, bits)
-        _shim_substep(shim, got, got_bits, keys, rows, step_time)
+        assert torch.equal(_shim_frame(shim, got, got_bits, frame_rng, rows, step_time, 1),
+                           k3[:, 2])
         w, g = state_to_numpy(want), state_to_numpy(got)
         for f in INT_CARRY:
             np.testing.assert_array_equal(g[f], w[f], err_msg=f)
@@ -270,7 +260,7 @@ def test_frame_transition_matches_the_plain_frame(shim, case):
     for keys in prng.split(k3[:, 0], 10).transpose(0, 1).contiguous():
         u0 = prng.uniform(keys, (1,))[:, 0]
         assert _near_ties(u0, want.half_life, step_time) == 0, "a draw sits at its probability"
-        decay_stats_substep(want, want_bits, cfg, keys, dyn)
+        _plain_substep(want, want_bits, cfg, keys, dyn)
     # The CPU wrapper of the frame kernel is that plain frame.
     wrapped, wrapped_bits = _clone(carry, bits)
     next_plain = decay_stats_frame(wrapped, wrapped_bits, frame_rng, cfg, dyn, 10)

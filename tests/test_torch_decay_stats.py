@@ -30,8 +30,9 @@ from pyqmd_tpu.kernels import decay_pallas
 from pyqmd_tpu_torch import prng
 from pyqmd_tpu_torch.core import decay, step
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
-from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, decay_stats_frame, decay_stats_substep
+from pyqmd_tpu_torch.kernels.decay import DECAY_FIELDS, _plain_substep, decay_stats_frame
 from pyqmd_tpu_torch.state import state_to_numpy
+from pyqmd_tpu_torch.utils import profiling
 
 TRAJECTORY = ("z", "n", "decay_counts", "chain_z0", "chain_n0", "chain_dtype", "chain_z1",
               "chain_n1", "chain_cursor", "rng", "alive", "ptype")
@@ -171,9 +172,9 @@ def test_wrapper_updates_the_carry_in_place_on_cpu():
     carry = st.replace(**{f: getattr(st, f).clone() for f in DECAY_FIELDS})
     carry_bits = tuple(x.clone() for x in bits)
     ptrs = [getattr(carry, f).data_ptr() for f in DECAY_FIELDS]
-    before = decay_stats_substep.launches
-    decay_stats_substep(carry, carry_bits, pcfg, keys, dyn)
-    assert decay_stats_substep.launches == before
+    before = profiling.counters()
+    _plain_substep(carry, carry_bits, pcfg, keys, dyn)
+    assert profiling.counters() == before  # no kernel ran
     assert ptrs == [getattr(carry, f).data_ptr() for f in DECAY_FIELDS]
     for f in DECAY_FIELDS:
         assert torch.equal(getattr(carry, f), getattr(want, f)), f
@@ -242,9 +243,10 @@ def test_frame_wrapper_on_cpu_is_the_reference_frame(monkeypatch, case, backend)
     adv, dyn = step._frame_clock(pst, pcfg, ts, frame_dt, 5, None, None)
     carry = adv.replace(**{f: getattr(adv, f).clone() for f in DECAY_FIELDS})
     bits = decay.pack_nucleon_bits(adv.alive, adv.ptype)
-    before = decay_stats_frame.launches
+    before = profiling.counters()["kernels.decay_stats_frame.launches"]
     rng = decay_stats_frame(carry, bits, adv.rng, pcfg, dyn, 5)
-    assert decay_stats_frame.launches == before  # the plain version ran
+    # the plain version ran
+    assert profiling.counters()["kernels.decay_stats_frame.launches"] == before
     assert torch.equal(pst.rng, rng_before) and not torch.equal(rng, rng_before)
     alive, ptype = decay.unpack_alive_ptype(*bits, pcfg.max_particles)
     got = carry.replace(alive=alive, ptype=ptype, rng=rng)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import _torch_parity  # noqa: F401  (caps torch threads)
-from pyqmd_tpu_torch import Simulation, analysis, cli, frame_profile, load_checkpoint, prng
+from pyqmd_tpu_torch import Simulation, analysis, cli, load_checkpoint, prng
 from pyqmd_tpu_torch.config import SimConfig
 from pyqmd_tpu_torch.core import init
 from pyqmd_tpu_torch.state import empty_state, state_from_numpy, state_to_numpy
@@ -32,8 +32,6 @@ CALLS = {
     "prng_key": lambda **kw: prng.prng_key(3, **kw),
     "survival_curve": lambda **kw: analysis.survival_curve(6, 8, batch=16, frames=1, **kw),
     "chain_populations": lambda **kw: analysis.chain_populations(6, 8, batch=16, frames=1, **kw),
-    "frame_breakdown": lambda **kw: frame_profile.frame_breakdown(
-        6, 8, batch=16, frames=20, half_lives=2.0, substeps=1, **kw),
     "Simulation": lambda **kw: Simulation(z=6, n=8, pad_to=8, **kw).state.pos,
     "Simulation_ensemble": lambda **kw: Simulation(z=6, n=8, pad_to=8, ensemble=3, **kw).state.pos,
 }
@@ -93,10 +91,10 @@ def test_entry_point_defaults_to_the_card(name):
     assert _device_of(call(device="cpu")) in ("cpu", None)
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "force_times.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py"])
 def test_card_scripts_refuse_to_run_without_a_card(script):
-    """The measurement scripts never fall back to the CPU: without a CUDA
-    device they exit nonzero and print no result."""
+    """The card's check never falls back to the CPU: without a CUDA device
+    it exits nonzero and prints no result."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     repo = Path(__file__).resolve().parent.parent

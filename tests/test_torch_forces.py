@@ -17,6 +17,7 @@ from pyqmd_tpu.core.forces import force_step as jax_force_step
 from pyqmd_tpu.kernels.forces_pallas import force_step_pallas
 from pyqmd_tpu_torch.core import forces
 from pyqmd_tpu_torch.kernels.forces import force_step as wrapped_force_step
+from pyqmd_tpu_torch.utils import profiling
 
 DT = 1 / 240.0
 U238 = JaxConfig.for_isotope(92, 146, pad_to=128, fast_math=False)
@@ -102,9 +103,9 @@ def test_force_step_chunks_large_batches():
 def test_wrapper_takes_the_plain_version_on_cpu():
     cfg = tp.port_cfg(U238)
     arrays = [torch.from_numpy(a) for a in _random_batch(256, [238], [3])]
-    before = wrapped_force_step.launches
+    before = profiling.counters()["kernels.force_step.launches"]
     got = wrapped_force_step(*arrays, DT, cfg)
     ref = forces.force_step(*arrays, DT, cfg)
-    assert wrapped_force_step.launches == before
+    assert profiling.counters()["kernels.force_step.launches"] == before
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy())

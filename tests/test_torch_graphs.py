@@ -14,8 +14,7 @@ force step takes a 0-d dt, the factories cache as the JAX package's do and
 run the bare frames bitwise on the CPU, and the capture/replay plumbing
 (copy in, copy back, clone out, aliasing) runs on a stand-in that replays
 the captured aten ops with their captured arguments. The card's own checks
-are in
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+are in ``tests/test_torch_cuda.py``.
 """
 
 import functools
@@ -42,6 +41,7 @@ from pyqmd_tpu_torch.core.dynamics import (
 )
 from pyqmd_tpu_torch.core.init import ensemble_init
 from pyqmd_tpu_torch.state import state_to_numpy
+from pyqmd_tpu_torch.utils import profiling
 
 F32 = np.float32
 YEAR = 3.15576e7
@@ -373,8 +373,6 @@ def test_capture_and_replay_spans_and_counters(monkeypatch):
     replays in ``graph.replays``, never a capture."""
     from torch.profiler import ProfilerActivity, profile
 
-    from pyqmd_tpu_torch.utils import profiling
-
     monkeypatch.setattr(graphs, "_record", lambda fn, dev: _CpuGraph(fn))
     cfg, st0, steps = _state("he4")
     metrics = functools.partial(step._metrics, batched=True)
@@ -395,6 +393,63 @@ def test_capture_and_replay_spans_and_counters(monkeypatch):
         ("pyqmd.graph.copy_out", None)] * 2
 
 
+def test_a_capture_gives_back_its_counts_and_each_replay_counts_them(monkeypatch):
+    """What the captured body counts (the kernel wrappers' launches on the
+    card) is put back after the capture, kept as the graph's ``launches``
+    and counted again by every replay; nothing else moves but
+    ``graph.captures`` and ``graph.replays``."""
+    monkeypatch.setattr(graphs, "_record", lambda fn, dev: _CpuGraph(fn))
+    cfg, st0, steps = _state("he4")
+
+    def body(states, cfg, sc, num_steps):
+        profiling.count("kernels.force_step.launches", num_steps)
+        profiling.count("kernels.overlap_step.launches")
+        return step.frame_body(states, cfg, sc, num_steps)
+
+    run = graphs.FrameGraphs(cfg, steps, body, functools.partial(step._metrics, batched=True),
+                             2, graph_metrics=False)
+    values, fast = scalar_values(
+        frame_dynamics(cfg, *REGIMES["fast"][0][:2], steps, None, cfg.physics_dt), cfg)
+    before = profiling.counters()
+    g = run._capture(st0, fast, run.bucket(st0, cfg.physics_dt, fast), None)
+    assert g.launches == {"kernels.force_step.launches": steps,
+                          "kernels.overlap_step.launches": 1}
+    assert profiling.counters() == {**before, "graph.captures": before["graph.captures"] + 1}
+    g.replay(st0, values, 2)
+    after = profiling.counters()
+    assert {k: v - before[k] for k, v in after.items() if v != before[k]} == {
+        "graph.captures": 1, "graph.replays": 2, "kernels.force_step.launches": 2 * steps,
+        "kernels.overlap_step.launches": 2}
+
+
+def test_a_count_beside_the_capture_stays_and_no_replay_repeats_it(monkeypatch):
+    """A counter outside ``kernels.*`` that moves while a graph is captured
+    (another thread's sync or drain; here the body's own) keeps its count,
+    and is no part of what a replay counts."""
+    monkeypatch.setattr(graphs, "_record", lambda fn, dev: _CpuGraph(fn))
+    cfg, st0, steps = _state("he4")
+
+    def body(states, cfg, sc, num_steps):
+        profiling.count("kernels.force_step.launches", num_steps)
+        profiling.count("host.syncs")
+        profiling.count("sim.chain_drains", 2)
+        return step.frame_body(states, cfg, sc, num_steps)
+
+    run = graphs.FrameGraphs(cfg, steps, body, functools.partial(step._metrics, batched=True),
+                             2, graph_metrics=False)
+    values, fast = scalar_values(
+        frame_dynamics(cfg, *REGIMES["fast"][0][:2], steps, None, cfg.physics_dt), cfg)
+    before = profiling.counters()
+    g = run._capture(st0, fast, run.bucket(st0, cfg.physics_dt, fast), None)
+    assert g.launches == {"kernels.force_step.launches": steps}
+    captured = profiling.counters()
+    assert {k: v - before[k] for k, v in captured.items() if v != before[k]} == {
+        "graph.captures": 1, "host.syncs": 1, "sim.chain_drains": 2}
+    g.replay(st0, values, 3)
+    assert {k: v - captured[k] for k, v in profiling.counters().items() if v != captured[k]} == {
+        "graph.replays": 3, "kernels.force_step.launches": 3 * steps}
+
+
 def test_a_failed_capture_names_the_bucket(monkeypatch):
     def refuse(fn, dev):
         raise RuntimeError("operation not permitted when stream is capturing")
@@ -403,8 +458,8 @@ def test_a_failed_capture_names_the_bucket(monkeypatch):
     cfg, st0, steps = _state("he4")
     fg = graphs.FrameGraphs(cfg, steps, step.frame_body,
                             functools.partial(step._metrics, batched=True), 1, True)
-    before = graphs.read_counters()
+    before = profiling.counters()
     with pytest.raises(RuntimeError, match=r"bucket \(Z=2, N=2, P=8, num_steps=4.*B=4"):
         fg._capture(st0, True, fg.bucket(st0, cfg.physics_dt, True), None)
-    assert graphs.read_counters() == before and fg.captures == 0
+    assert profiling.counters() == before and fg.captures == 0
 

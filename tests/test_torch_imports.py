@@ -1,11 +1,15 @@
 """The port stands without JAX: every module imports with ``jax`` blocked,
 importing builds nothing and pulls in no ``triton``, and the kernel
-wrappers take their plain versions on CPU tensors without launching."""
+wrappers take their plain versions on CPU tensors without launching; the
+graph capturer and the counter registry know no kernel."""
 
+import ast
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -33,8 +37,8 @@ _PROBE = textwrap.dedent(
     from pyqmd_tpu_torch import SimConfig
     from pyqmd_tpu_torch.kernels.forces import force_step
     from pyqmd_tpu_torch.kernels.overlap import overlap_step
-    from pyqmd_tpu_torch.kernels.decay import decay_stats_frame, decay_stats_substep
     from pyqmd_tpu_torch import analysis, make_decay_frame_fn, ensemble_init
+    from pyqmd_tpu_torch.utils.profiling import counters
     cfg = SimConfig.for_isotope(2, 2, pad_to=8)
     pos = torch.full((3, 8, 2), 400.0) + torch.arange(16.0).reshape(1, 8, 2)
     alive = torch.ones(3, 8, dtype=torch.bool)
@@ -43,9 +47,7 @@ _PROBE = textwrap.dedent(
     states, _ = make_decay_frame_fn(SimConfig.for_isotope(6, 8), 2)(
         ensemble_init(SimConfig.for_isotope(6, 8), 4, device="cpu"), 1e11, 1.0)
     assert analysis.half_life_host(6, 8) > 0 and states.z.shape == (4,)
-    assert force_step.launches == 0 and overlap_step.launches == 0
-    assert decay_stats_substep.launches == 0 and decay_stats_frame.launches == 0
-    assert force_step.small_launches == 0 and force_step.paired_launches == 0
+    assert not any(v for k, v in counters().items() if k.startswith("kernels."))
     assert _build.library.cache_info().currsize == 0
 
     # The compiled frame buckets: on CPU tensors the factories run eagerly,
@@ -97,7 +99,7 @@ _PROBE = textwrap.dedent(
     assert "pyqmd_tpu" not in sys.modules and "triton" not in sys.modules
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules
                    if sys.modules[m] is not None)
-    assert force_step.launches == 0 and overlap_step.launches == 0
+    assert not any(v for k, v in counters().items() if k.startswith("kernels."))
     assert _build.library.cache_info().currsize == 0
 
     # The sharded path in a world of one on the CPU: a fused run, the ring
@@ -135,7 +137,7 @@ _PROBE = textwrap.dedent(
     assert "pyqmd_tpu" not in sys.modules and "triton" not in sys.modules
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules
                    if sys.modules[m] is not None)
-    assert force_step.launches == 0 and overlap_step.launches == 0
+    assert not any(v for k, v in counters().items() if k.startswith("kernels."))
     assert _build.library.cache_info().currsize == 0
     print("MODULES", len(names))
     """
@@ -151,3 +153,21 @@ def test_port_imports_without_jax_and_builds_nothing():
     # config, state, prng, analysis, data/*, core/*, kernels/*, sim, cli, utils/*, render/*,
     # parallel/*
     assert n_modules >= 46
+
+
+@pytest.mark.parametrize("module", ["core/graphs.py", "utils/profiling.py"])
+def test_layer_below_the_kernels_imports_no_kernel_module(module):
+    """The graph capturer and the counters registry sit below the kernel
+    wrappers: their sources (read, not imported, since importing runs the
+    package's ``__init__``) import no ``pyqmd_tpu_torch.kernels`` module,
+    at the top or inside a function."""
+    tree = ast.parse((REPO / "pyqmd_tpu_torch" / module).read_text())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{module}: a relative import"
+            imported += [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+    assert "torch" in imported
+    assert not [m for m in imported if m.startswith("pyqmd_tpu_torch.kernels")], imported

@@ -14,7 +14,7 @@ multiple of 32, so the grid's last warp holds lanes past the batch (a lane
 that left before a shuffle would deadlock the emulated warp), capacities
 that are not powers of two, and a nucleus with no alive slot. Small sizes
 only: one host thread per CUDA thread. The card runs the same
-sources built by nvcc (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+sources built by nvcc (``tests/test_torch_cuda.py``).
 """
 
 import ctypes

@@ -4,7 +4,9 @@ statistics function emit their spans nested as the layers nest, and the
 counters advance. The frame reader's spans are tested beside its ring in
 ``test_torch_interactive.py``, the graphs' in ``test_torch_graphs.py``."""
 
+import ast
 import json
+from pathlib import Path
 
 import pytest
 import torch
@@ -14,8 +16,9 @@ import _torch_parity  # noqa: F401  (caps torch threads)
 from pyqmd_tpu_torch import Simulation
 from pyqmd_tpu_torch.analysis import survival_curve
 from pyqmd_tpu_torch.config import SimConfig
-from pyqmd_tpu_torch.kernels.forces import force_step
 from pyqmd_tpu_torch.utils import profiling
+
+KERNELS = Path(profiling.__file__).resolve().parent.parent / "kernels"
 
 
 def program_spans(prof) -> list[tuple[str, str | None]]:
@@ -52,22 +55,86 @@ def test_a_span_without_a_profiler_is_the_shared_no_op(monkeypatch):
     assert not torch.autograd.profiler._is_profiler_enabled
 
 
-def test_counters_count_and_report_the_kernel_launches(monkeypatch):
+@pytest.fixture
+def own_counters(monkeypatch):
+    """The registry's counters, for this test alone."""
+    monkeypatch.setattr(profiling, "_COUNTS", dict(profiling._COUNTS))
+
+
+def test_counters_count_and_report_the_kernel_launches(own_counters):
     before = profiling.counters()
     assert {"host.syncs", "graph.captures", "graph.replays", "sim.chain_drains",
             "kernels.force_step.launches", "kernels.force_step.small_launches",
             "kernels.force_step.paired_launches",
             "kernels.overlap_step.launches", "kernels.decay_stats_frame.launches",
-            "kernels.decay_stats_substep.launches",
             "kernels.ejecta_decay_substep.launches"} == set(before)
     profiling.count("host.syncs")
     profiling.count("graph.replays", 3)
-    monkeypatch.setattr(force_step, "launches", force_step.launches + 5)
+    profiling.count("kernels.force_step.launches", 5)
     after = profiling.counters()
     grown = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert grown == {"host.syncs": 1, "graph.replays": 3, "kernels.force_step.launches": 5}
+
+
+def test_counting_an_undeclared_name_raises(own_counters):
+    before = profiling.counters()
+    for name in ("no.such.counter", "kernels.decay_stats_substep.launches",
+                 "kernels.force_step"):
+        with pytest.raises(KeyError):
+            profiling.count(name)
+    assert profiling.counters() == before
+
+
+def test_restoring_a_snapshot_puts_back_every_counter(own_counters):
+    snapshot = profiling.counters()
+    for i, name in enumerate(snapshot):
+        profiling.count(name, i + 1)
+    assert all(v != snapshot[k] for k, v in profiling.counters().items())
+    profiling.restore_counters(snapshot)
+    assert profiling.counters() == snapshot
+    snapshot["host.syncs"] += 1  # a snapshot is a copy: changing it changes no counter
+    assert profiling.counters()["host.syncs"] == snapshot["host.syncs"] - 1
+
+
+def test_restoring_part_of_a_snapshot_leaves_the_other_counters(own_counters):
+    """A capture puts back the kernels' counters alone: a count elsewhere
+    in the meantime stays, and a name the registry lacks raises."""
+    kernels = {k: v for k, v in profiling.counters().items() if k.startswith("kernels.")}
+    profiling.count("kernels.force_step.launches", 5)
+    profiling.count("host.syncs", 2)
+    before = profiling.counters()
+    profiling.restore_counters(kernels)
+    assert profiling.counters() == {**before, **kernels}
+    assert profiling.counters()["host.syncs"] == before["host.syncs"]
     with pytest.raises(KeyError):
-        profiling.count("no.such.counter")
+        profiling.restore_counters({"no.such.counter": 0})
+
+
+def _counted_names(fn: ast.FunctionDef) -> set:
+    return {node.args[0].value for node in ast.walk(fn)
+            if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "count"}
+
+
+def _launches(fn: ast.FunctionDef) -> bool:
+    """Whether ``fn`` launches a kernel: every launch is followed by
+    ``_build.raise_on_error``."""
+    return any(isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "raise_on_error"
+               for node in ast.walk(fn))
+
+
+@pytest.mark.parametrize("module", sorted(p.stem for p in KERNELS.glob("[!_]*.py")))
+def test_every_kernel_wrapper_counts_under_its_declared_names(module):
+    """Each wrapper that launches a kernel counts its launches as
+    ``kernels.<wrapper>.launches``, and the registry declares exactly the
+    ``kernels.<wrapper>.*`` names the wrapper counts."""
+    tree = ast.parse((KERNELS / f"{module}.py").read_text())
+    wrappers = [f for f in tree.body if isinstance(f, ast.FunctionDef) and _launches(f)]
+    assert wrappers, module
+    declared = set(profiling.counters())
+    for fn in wrappers:
+        counted = _counted_names(fn)
+        assert f"kernels.{fn.name}.launches" in counted, fn.name
+        assert counted == {k for k in declared if k.startswith(f"kernels.{fn.name}.")}, fn.name
 
 
 def test_trace_writes_the_counters_grown_over_the_block(tmp_path):

@@ -25,7 +25,7 @@ from pyqmd_tpu.core.init import ensemble_init as jax_ensemble_init
 from pyqmd_tpu.core.step import advance_ejecta as jax_advance_ejecta
 from pyqmd_tpu.core.step import make_frame_fn as jax_make_frame_fn
 from pyqmd_tpu.state import NucleusState as JaxState
-from pyqmd_tpu_torch.core import step
+from pyqmd_tpu_torch.core import decay, step
 from pyqmd_tpu_torch.core.dynamics import FrameDynamics
 from pyqmd_tpu_torch.core.init import ensemble_init
 from pyqmd_tpu_torch.state import NucleusState, state_from_numpy, state_to_numpy
@@ -122,7 +122,8 @@ def test_advance_ejecta_matches_the_reference():
         pd = FrameDynamics(np.float32(ts), np.float32(ss), np.float32(cfg.effective_dt()),
                            step_time, np.float32(cfg.physics_dt))
         want = tp.jax_to_numpy(jax.vmap(lambda s: jax_advance_ejecta(s, cfg, jd))(jst))
-        got = state_to_numpy(step.advance_ejecta(state_from_numpy(ref, device="cpu"), tp.port_cfg(cfg), pd))
+        got = state_to_numpy(decay.advance_ejecta(state_from_numpy(ref, device="cpu"),
+                                                  tp.port_cfg(cfg), pd))
         np.testing.assert_array_equal(got["ej_alive"], want["ej_alive"])
         np.testing.assert_array_equal(got["ej_age"], want["ej_age"])
         np.testing.assert_allclose(got["ej_pos"], want["ej_pos"], rtol=1e-6)
